@@ -1,8 +1,8 @@
-// scio: stream IO engine for the TPU modem runtime.
+// scio: stream IO engine for the modem runtime.
 //
 // The reference's "runtime" is a blocking fread/fwrite loop over one
 // channel (reference: src/qpsk.c:436-458, files at qpsk_internal.h:25-26).
-// Feeding a TPU demodulating >=100k channels per chip needs the host
+// Feeding an accelerator demodulating >=100k channels needs the host
 // side to deinterleave, frame, and batch PCM at tens of GB/s; that work
 // stays native:
 //

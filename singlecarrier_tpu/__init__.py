@@ -1,7 +1,7 @@
-"""singlecarrier_tpu: a TPU-native single-carrier QPSK modem framework.
+"""singlecarrier_tpu: a batched single-carrier QPSK modem framework in JAX.
 
 A from-scratch JAX/XLA re-design with the capabilities of the reference
-C modem (srsampson/SingleCarrier, mounted at /root/reference): RRC
+C modem (srsampson/SingleCarrier): RRC
 matched filtering, BPSK preamble correlation sync, square-root-Kalman
 adaptive equalization, QPSK slicing and DVB descrambling -- built as
 batched, shardable, jit-compiled pipelines that demodulate very large
@@ -18,7 +18,7 @@ Layer map (mirrors SURVEY.md):
   ber              BER-vs-SNR harness
   parallel/        mesh, channel-sharded and time-sharded demod
   runtime/         stream driver, checkpoint, metrics, native IO
-  utils/           backend compat, small linalg
+  utils/           compile cache, small linalg
 """
 
 from .config import DEFAULT_CONFIG, ModemConfig

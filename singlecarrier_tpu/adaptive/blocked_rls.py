@@ -3,10 +3,9 @@
 The reference equalizer chains one Hsu-1982 sqrt-Kalman update per
 symbol (reference: src/kalman.c:85-141 driven from equalizer.c:25-58)
 -- a 159-step serial recursion per frame that is the faithful path's
-throughput ceiling (BENCH_FAITHFUL.json: 3.2 MS/s/chip; SURVEY.md
-hard-part #1).  This module is the BLOCKED restructuring the north star
+throughput ceiling (SURVEY.md hard-part #1).  This module is the BLOCKED restructuring the north star
 names: process ``B`` symbols with FROZEN coefficients (one batched
-filter + error computation -- MXU/VPU-shaped), then fold the whole
+filter + error computation -- dense batched arithmetic), then fold the whole
 block into ONE information-form RLS update:
 
     R   <- lam^B * (R + Z^H Z) + (1 - lam^B) * E * I
@@ -36,8 +35,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import jax.numpy as jnp
+from jax import lax
 
-from ..utils.compat import czeros
 from ..utils.linalg import chol_solve_hermitian
 
 
@@ -56,7 +55,7 @@ def blocked_eq_init(eq_length: int, E: float,
     return BlockedEqState(
         r=jnp.broadcast_to(E * eye,
                            (*batch_shape, eq_length, eq_length)),
-        coeff=czeros((*batch_shape, eq_length)),
+        coeff=jnp.zeros((*batch_shape, eq_length), jnp.complex64),
     )
 
 
@@ -64,13 +63,14 @@ def _info_update(state: BlockedEqState, Z, e_vec, lam_B: float,
                  E: float, conj_domain: bool) -> BlockedEqState:
     """One blocked info-form update from windows Z [.., B, L] and
     frozen-coeff errors e_vec [.., B]."""
-    A = jnp.einsum("...bi,...bj->...ij", jnp.conj(Z), Z)
+    hi = lax.Precision.HIGHEST      # Gram/solve feed the coefficients
+    A = jnp.einsum("...bi,...bj->...ij", jnp.conj(Z), Z, precision=hi)
     # R is tracked in the TRAIN domain (curvature wrt coeff); the data
     # update solves for u = conj(coeff), whose curvature is the
     # elementwise conjugate of the train-domain one.
     r_dom = jnp.conj(state.r) if conj_domain else state.r
     S = r_dom + A
-    b = jnp.einsum("...bi,...b->...i", jnp.conj(Z), e_vec)
+    b = jnp.einsum("...bi,...b->...i", jnp.conj(Z), e_vec, precision=hi)
     delta = chol_solve_hermitian(S, b)
     if conj_domain:
         delta = jnp.conj(delta)
@@ -103,13 +103,15 @@ def train_block(state: BlockedEqState, Z, refs, mask, lam_B: float,
     in-block predictions.  Detection thresholds carry over (verified
     in tests/test_blocked_kalman.py: clean ~128, noise-only ~70).
     """
-    val = jnp.einsum("...bl,...l->...b", Z, state.coeff)
+    hi = lax.Precision.HIGHEST      # val's signs are the match count
+    val = jnp.einsum("...bl,...l->...b", Z, state.coeff, precision=hi)
     err = refs - val                      # conj(ref-val).real == real
     new_state = _info_update(state, Z * mask[..., None],
                              err * mask, lam_B, E,
                              conj_domain=False)
     if count_post:
-        val = jnp.einsum("...bl,...l->...b", Z, new_state.coeff)
+        val = jnp.einsum("...bl,...l->...b", Z, new_state.coeff,
+                         precision=hi)
     matches = jnp.sum((val.real * refs > 0.0) * mask, axis=-1)
     return new_state, matches.astype(jnp.int32)
 
@@ -124,7 +126,8 @@ def data_block(state: BlockedEqState, W, mask, lam_B: float, E: float,
     ``(new_state, dibits, err_real_sum)`` -- err_real_sum is the
     reference's accumulated EOF cost contribution (qpsk.c:227-231).
     """
-    sym = jnp.einsum("...bl,...l->...b", W, jnp.conj(state.coeff))
+    sym = jnp.einsum("...bl,...l->...b", W, jnp.conj(state.coeff),
+                     precision=lax.Precision.HIGHEST)   # sliced below
     i_bit = (sym.real < 0.0)
     q_bit = (sym.imag < 0.0)
     hard = (jnp.where(i_bit, -1.0, 1.0)

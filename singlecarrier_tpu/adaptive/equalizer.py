@@ -1,6 +1,6 @@
 """Adaptive linear equalizer driven by the square-root Kalman gain.
 
-TPU-native port of the reference's 5-tap feed-forward equalizer
+JAX port of the reference's 5-tap feed-forward equalizer
 (reference: src/equalizer.c).  Training (known reference symbol,
 equalizer.c:45-58) and data (decision-directed, equalizer.c:64-90) are
 pure step functions over an explicit state pytree so the per-symbol
@@ -23,7 +23,6 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 
-from ..utils.compat import czeros
 from .kalman import KalmanState, kalman_init, kalman_update
 
 
@@ -37,7 +36,7 @@ def eq_init(eq_length: int, batch_shape=()) -> EqState:
     """kalman_reset(): coeff = 0, u = 0, d = 1 (kalman.c:42-55)."""
     return EqState(
         kalman=kalman_init(eq_length, batch_shape),
-        coeff=czeros((*batch_shape, eq_length)),
+        coeff=jnp.zeros((*batch_shape, eq_length), jnp.complex64),
     )
 
 

@@ -1,13 +1,13 @@
 """Square-root (UD-factorized) Kalman/RLS gain estimator.
 
-TPU-native port of the reference's Hsu-1982 square-root Kalman update
+JAX port of the reference's Hsu-1982 square-root Kalman update
 (reference: src/kalman.c:85-141, after "Square Root Kalman Filtering
 for High Speed Data Received over Fading Dispersive Channels", IEEE
 Trans. IT-28 no.5).  The reference mutates static globals one scalar at
 a time; here the state is an explicit pytree ``{u, d}`` and the update
 is a pure function, written so every step vectorizes over the
 equalizer-tap axis and the whole thing ``vmap``s over channels (the
-channel axis is the TPU scaling axis -- per-channel state is ~70
+channel axis is the scaling axis -- per-channel state is ~70
 floats, SURVEY.md section 3.3).
 
 Key observation used to vectorize the reference's in-place triangular
@@ -25,8 +25,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import jax.numpy as jnp
+from jax import lax
 
-from ..utils.compat import czeros
 
 
 class KalmanState(NamedTuple):
@@ -38,7 +38,7 @@ class KalmanState(NamedTuple):
 def kalman_init(eq_length: int, batch_shape=()) -> KalmanState:
     """kalman_reset(): u = 0, d = 1 (kalman.c:42-55)."""
     return KalmanState(
-        u=czeros((*batch_shape, eq_length, eq_length)),
+        u=jnp.zeros((*batch_shape, eq_length, eq_length), jnp.complex64),
         d=jnp.ones((*batch_shape, eq_length), jnp.float32),
     )
 
@@ -62,7 +62,8 @@ def kalman_update(state: KalmanState, x_win, E: float, q: float):
     # 6.2/6.3: f[j] = conj(x[j]) + sum_{i<j} u[i][j] conj(x[i])
     # (kalman.c:89-100); u is strictly upper so the full contraction is
     # exact.
-    f = cx + jnp.einsum("...ij,...i->...j", u, cx)
+    f = cx + jnp.einsum("...ij,...i->...j", u, cx,
+                        precision=lax.Precision.HIGHEST)
 
     # 6.4: initial gain g = f * d (kalman.c:105-107).
     gain = f * d.astype(jnp.complex64)

@@ -14,7 +14,7 @@ the same least-squares problem the RLS is approximating:
     coeff = argmin || C @ coeff - p ||^2 + reg*||coeff||^2
 
 where C[t, i] = sym[lag + t + i] are the chip windows and p the known
-+/-1 preamble.  On TPU this is two small matmuls (C^H C is 5x5, C^H p
++/-1 preamble.  This is two small matmuls (C^H C is 5x5, C^H p
 is 5) and one 5x5 solve -- fully parallel over channels, numerically
 exact, and it removes the 128-step scan from the hot path entirely.
 Decoding then applies the frozen filter to all 248 data windows as one
@@ -91,10 +91,9 @@ def ls_train(symbols, lag, pn, L: int, reg: float = 1e-4,
     P = pn.shape[-1]
     C = window_matrix(symbols, lag, P, L)            # [P, L]
     pnc = pn.astype(jnp.complex64)
-    # HIGHEST precision throughout: the TPU default single-pass
-    # bf16 dot corrupts the normal equations enough to flip decoded
-    # bits (tools/tpu_parity.py: 264 errors at default vs 0 at f32
-    # on a 12 dB stream).  These matmuls are tiny (<= [248, 5]).
+    # HIGHEST precision throughout: a reduced-precision dot (bf16
+    # passes, or TF32 on a GPU) corrupts the normal equations enough
+    # to flip decoded bits.  These matmuls are tiny (<= [248, 5]).
     hi = lax.Precision.HIGHEST
     A = jnp.matmul(C.conj().mT, C, precision=hi)      # [L, L] hermitian
     # Scale-aware ridge: reg relative to the mean window power.
@@ -104,8 +103,8 @@ def ls_train(symbols, lag, pn, L: int, reg: float = 1e-4,
         + 1e-12 * jnp.eye(L, dtype=A.dtype)
     b = jnp.matmul(C.conj().mT, pnc[..., None],
                    precision=hi)[..., 0]             # [L]
-    # Unrolled Cholesky: far faster than jnp.linalg.solve's generic LU
-    # for batched tiny systems on TPU (utils/linalg.py).
+    # Unrolled Cholesky: batched tiny systems as elementwise arithmetic
+    # instead of a generic LU (utils/linalg.py).
     coeff = chol_solve_hermitian(A, b)
     val = jnp.matmul(C, coeff[..., None], precision=hi)[..., 0]
     matches = jnp.sum((val.real * pn) > 0.0, axis=-1).astype(jnp.int32)
@@ -152,9 +151,8 @@ def ls_refit(symbols, start, coeff, n_data: int, reg: float = 1e-3,
     fit (standard decision-directed LS).
 
     ``n_fit`` (config.ls_refit_symbols): fit on only the FIRST n_fit
-    data windows (0 = all ``n_data``) -- the throughput knob of the
-    fused kernels' refit stage, mirrored here so the XLA oracle stays
-    the parity surface.
+    data windows (0 = all ``n_data``) -- a throughput knob: the refit's
+    work scales with the window.
 
     Returns the refitted coeff.
     """

@@ -147,8 +147,7 @@ def channel(key, pcm, *, snr_db=None, freq_hz=0.0, phase_rad=0.0,
     the active samples -- note that for framed streams with a
     reduced-amplitude preamble that mixes preamble and data power, so
     BER harnesses that anchor against data-section theory should pass
-    the data-section power explicitly (ber.py does; VERDICT r4 weak
-    #3).
+    the data-section power explicitly (ber.py does).
 
     Returns float32 passband samples (quantize with
     ``.astype(jnp.int16)`` if int16 is required downstream).

@@ -35,10 +35,6 @@ def _add_cfg_flags(p: argparse.ArgumentParser) -> None:
                    default=DEFAULT_CONFIG.eq_length)
     p.add_argument("--hunt-dtype", default=DEFAULT_CONFIG.hunt_dtype,
                    choices=["bf16", "f32", "int8"])
-    p.add_argument("--decim-dtype", default=DEFAULT_CONFIG.decim_dtype,
-                   choices=["f32", "bf16"])
-    p.add_argument("--cfo-dtype", default=DEFAULT_CONFIG.cfo_dtype,
-                   choices=["f32", "bf16"])
     p.add_argument("--hunt-norm", default=DEFAULT_CONFIG.hunt_norm,
                    choices=["energy", "espan", "none"])
     p.add_argument("--refit-iters", type=int,
@@ -53,8 +49,7 @@ def _cfg_from(args) -> ModemConfig:
     return DEFAULT_CONFIG.replace(
         fs=args.fs, rs=args.rs, center=args.center, alpha=args.alpha,
         ns=args.ns, eq_length=args.eq_length,
-        hunt_dtype=args.hunt_dtype, decim_dtype=args.decim_dtype,
-        cfo_dtype=args.cfo_dtype, hunt_norm=args.hunt_norm,
+        hunt_dtype=args.hunt_dtype, hunt_norm=args.hunt_norm,
         ls_refit_iters=args.refit_iters,
         ls_refit_symbols=args.refit_symbols,
         phase_refine_iters=args.refine_iters)
@@ -240,15 +235,13 @@ def main(argv=None) -> int:
     p.add_argument("--trials", type=int, default=4)
     p.add_argument("--cfo", type=float, default=0.0)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--path", default="xla",
-                   choices=["xla", "batch_pallas", "fused_rx"],
-                   help="demod path under test: XLA scan oracle, the "
-                        "two-kernel Pallas batch pipeline, or the "
-                        "one-kernel fused RX")
+    p.add_argument("--path", default="xla", choices=["xla", "batch"],
+                   help="demod path under test: the per-block scan "
+                        "oracle or the block-parallel batch core")
     p.set_defaults(fn=cmd_ber)
 
     args = ap.parse_args(argv)
-    from .utils.compat import enable_compilation_cache
+    from .utils.cache import enable_compilation_cache
     enable_compilation_cache()
     return args.fn(args)
 

@@ -1,6 +1,6 @@
 """Modem numerology / configuration.
 
-TPU-native re-design of the reference's compile-time ``#define`` block
+Re-design of the reference's compile-time ``#define`` block
 (reference: headers/qpsk_internal.h:23-61, headers/fir.h:16-17,
 headers/kalman.h:26, headers/scramble.h:16-17).  Every constant the C
 code hardcodes becomes a validated field of a frozen dataclass whose
@@ -69,7 +69,7 @@ class ModemConfig:
     corr_segments: int = 8        # non-coherent correlation segments
                                   # (CFO-tolerant hunt; 1 = reference's
                                   # coherent correlator)
-    cfo_nfft: int = 512           # zero-padded DFT size for CFO search.
+    cfo_nfft: int = 512           # zero-padded FFT size for CFO search.
                                   # 512 (4x zero-pad of the 128 chips)
                                   # since round 5: at 2x pad (256) the
                                   # parabolic peak interpolation on
@@ -83,43 +83,24 @@ class ModemConfig:
                                   # loss 3.01 -> 0.81 dB at 512 (bias
                                   # 0.39 -> 0.04 Hz; 1024 gains
                                   # nothing further)
-    cfo_dtype: str = "f32"        # CFO-search DFT matmul precision
-                                  # ("f32" | "bf16").  bf16 runs the
-                                  # four [cb, P] x [P, nfft] DFT
-                                  # matmuls at full MXU rate and
-                                  # halves the DFT-matrix operand.
-                                  # The peak bin is SNR-robust and the
-                                  # parabolic delta only needs ~1e-2
-                                  # bin resolution, but the estimate
-                                  # is not bit-identical to f32 --
-                                  # decision-level gate like
-                                  # hunt_dtype (tools/tpu_parity.py)
     nlms_mu: float = 0.5          # production data-phase NLMS step size
-    hunt_dtype: str = "bf16"      # correlation-hunt matmul precision
+    hunt_dtype: str = "bf16"      # correlation-hunt matmul operands
                                   # ("bf16" | "f32" | "int8"); peak
                                   # statistic only.  "int8" quantizes
                                   # the hunt windows (the PN band
                                   # matrix is +/-1/0 chips, exactly
-                                  # int8) and runs the dominant
-                                  # correlation matmul at the MXU's
-                                  # doubled int8 rate (+15% pipeline,
-                                  # bench.py's headline operating
-                                  # point); the ~-40 dBc quantization
-                                  # floor is far below the detection
-                                  # statistic's noise at any operating
-                                  # SNR.  bf16 default because round()
-                                  # makes GATE-MARGINAL noise blocks
+                                  # int8) with exact int32
+                                  # accumulation; its ~-40 dBc
+                                  # quantization floor is far below the
+                                  # detection statistic's noise at any
+                                  # operating SNR.  round() makes
+                                  # GATE-MARGINAL noise blocks
                                   # knife-edge sensitive to ulp-level
-                                  # frontend differences: Pallas and
-                                  # XLA frontends can disagree on a
-                                  # sub-threshold false detect (seen:
-                                  # 1 block in 3840, 0 payload bit
-                                  # diffs, 384/384 true packets both
-                                  # paths -- PARITY_TPU_INT8.json), so
-                                  # the bit-conservative parity surface
-                                  # keeps bf16 (gates:
-                                  # tests/test_batch_rx.py int8 cases,
-                                  # tools/tpu_parity.py --hunt-dtype)
+                                  # front-end differences, so two
+                                  # front-ends can disagree on a
+                                  # sub-threshold false detect; bf16
+                                  # stays the default parity surface
+                                  # (gates: tests/test_batch_rx.py)
     hunt_int8_scale: float = 16.0  # int8 hunt quantization step:
                                   # q = clip(round(x*scale), +/-127),
                                   # representable range +/-7.9 in
@@ -127,109 +108,35 @@ class ModemConfig:
                                   # is ~O(1); clipping merely
                                   # saturates rare noise peaks, to
                                   # which the correlation is robust)
-    frontend_dtype: str = "bf16"  # fused front-end matched-filter matmul
-                                  # precision ("bf16" | "f32").  bf16
-                                  # runs the MXU at full rate; its
-                                  # ~-45 dBc quantization floor sits far
-                                  # below any operating channel SNR.
-                                  # "f32" for bit-conservative parity
-    mixer_fold: bool = False      # fold the downmix into COMPLEX
-                                  # decimation taps (frontend_pallas.
-                                  # _kernel_decim_folded): the matmul
-                                  # operand becomes the raw real PCM
-                                  # (ONE z plane instead of two --
-                                  # halves the z-store volume that
-                                  # dominates the front-end skeleton)
-                                  # and the mixer moves post-decim as
-                                  # an equal-cost output rotation.
-                                  # Same FLOPs, different op order
-                                  # (not bit-identical to premix);
-                                  # decision-level parity gated in
-                                  # tests/test_pallas_frontend.py and
-                                  # tools/tpu_parity.py --mixer-fold.
-                                  # False default keeps the premix
-                                  # kernel as the bit-conservative
-                                  # parity surface; bench.py flips it
-                                  # for the headline operating point.
-                                  # Requires the aligned kernel; falls
-                                  # back to premix otherwise.
-    decim_dtype: str = "f32"      # decimated-plane storage between the
-                                  # front-end and hunt+decode kernels
-                                  # ("f32" | "bf16").  bf16 halves the
-                                  # dominant HBM traffic (the decim
-                                  # planes are written once and read
-                                  # twice per block) at a ~-45 dBc
-                                  # quantization floor; the hunt
-                                  # already consumes them as bf16.
-                                  # f32 default keeps the decode-kernel
-                                  # LS numerics bit-conservative for
-                                  # parity runs; flip to bf16 for
-                                  # throughput deployments (on-chip
-                                  # parity gate: tools/tpu_parity.py
-                                  # --decim-dtype bf16)
     hunt_norm: str = "espan"      # hunt argmax statistic ("espan" |
-                                  # "energy" | "none").  "espan"
-                                  # (default since round 5 final)
-                                  # normalizes by the full-rate SPAN
-                                  # energy shared across the cyc
-                                  # decimation phases (the phase-summed
-                                  # squared planes through ONE band
-                                  # contraction instead of cyc): same
-                                  # CFAR mechanism, 5x the samples in
-                                  # the denominator estimate, ~4/5 of
-                                  # the normalizer's matmul work
-                                  # removed.  Measured vs "energy"
-                                  # (same-session A/B + on-chip fused-
-                                  # path curves): +4.1% headline (6.34
-                                  # vs 6.09 GS/s), identical Pd at the
-                                  # CFO edge (1.000 at 40 Hz to 2 dB,
-                                  # >=0.997 at 50 Hz), identical noise
-                                  # Pfa (3/1M blocks at gate 7/int8,
-                                  # matching the committed "energy"
-                                  # characterization; the 5x-larger
-                                  # denominator sample changes no
-                                  # measured operating point).
-                                  # "energy" is the per-phase
-                                  # normalizer it generalizes
-                                  # round 5) normalizes the segmented
+                                  # "energy" | "none").  "energy"
+                                  # normalizes the segmented
                                   # correlation power by the per-lag
                                   # window energy before the argmax --
                                   # a CFAR-style normalized matched
                                   # filter.  Mechanism it fixes
-                                  # (measured, DETECTION.md v2): the
-                                  # DATA sections transmit at 2x the
-                                  # preamble amplitude (qpsk.c:313-319)
-                                  # so their correlation sidelobes
+                                  # (DETECTION.md): the DATA sections
+                                  # transmit at 2x the preamble
+                                  # amplitude (qpsk.c:313-319) so
+                                  # their correlation sidelobes
                                   # out-compete the true peak once CFO
-                                  # decoherence costs it ~2.4 dB --
-                                  # at 40 Hz the raw-power argmax
-                                  # missed 8-21% of packets into
-                                  # mid-packet sidelobes (observed
-                                  # ratio 3.8-5.7 vs the true peak's
-                                  # 9.2).  Normalization penalizes
-                                  # high-energy lags 6 dB and restores
-                                  # Pd at the CFO edge; the final
+                                  # decoherence costs it ~2.4 dB -- at
+                                  # 40 Hz the raw-power argmax missed
+                                  # 8-21% of packets into mid-packet
+                                  # sidelobes.  "espan" (default)
+                                  # normalizes by the full-rate SPAN
+                                  # energy shared across the cyc
+                                  # decimation phases (the phase-summed
+                                  # squared planes through ONE band
+                                  # contraction): the same CFAR
+                                  # mechanism with 5x the samples in
+                                  # the denominator, identical Pd at
+                                  # the CFO edge and identical noise
+                                  # Pfa to "energy".  The final
                                   # peak>gate*energy criterion is
                                   # UNCHANGED (peak stays raw power at
                                   # the chosen lag).  "none" keeps the
-                                  # raw-power argmax (round<=4
-                                  # behavior) for A/B + parity
-                                  # archaeology
-    hunt_scheme: str = "lagtile"  # in-kernel hunt matmul schedule:
-                                  # "lagtile" (default) = one matmul
-                                  # per 128-lag tile against its K=384
-                                  # aligned window slice -- 1.33x
-                                  # fewer MACs than "chunk"
-                                  # (segment-major column chunks
-                                  # against the full K=512 window),
-                                  # +6% pipeline, identical values
-                                  # (decode_pallas.
-                                  # _segment_band_matrix_lagtile;
-                                  # equality gated in
-                                  # tests/test_batch_rx.py).  Falls
-                                  # back to chunk when the numerology
-                                  # breaks the tile bound (preamble +
-                                  # off > 257)
+                                  # raw-power argmax
     ls_reg: float = 1e-4          # ridge regularization of the LS eq fit
                                   # (CENTER tap; scale-aware, relative
                                   # to the Gram trace)
@@ -259,29 +166,6 @@ class ModemConfig:
                                   # overrides the prior on genuine
                                   # multipath while keeping most of
                                   # the AWGN denoising
-    ls_gram: str = "sliding"      # decode-kernel Gram assembly:
-                                  # "sliding" (default) = lag products
-                                  # + prefix-corrected partial sums
-                                  # (~2.5x fewer wide VPU ops, +6% on
-                                  # the headline pipeline); "direct" =
-                                  # L(L+1)/2 independent product+
-                                  # reduce pairs.  Same values up to
-                                  # fp reassociation (decode_pallas.
-                                  # _gram_sliding; equality gated in
-                                  # tests/test_decode_pallas.py)
-    ls_bvec: str = "reduce"       # train-fit b-vector assembly:
-                                  # "matmul" = one [cb, 256] x
-                                  # [256, 128] MXU matmul per plane
-                                  # against the banded PN matrix
-                                  # (decode_pallas._pn_bvec_band)
-                                  # replacing 2L issue-bound wide
-                                  # product+reduce chains; "reduce"
-                                  # (default) = the original chains,
-                                  # kept as the bit-conservative
-                                  # parity surface (the matmul
-                                  # reassociates the same sums).
-                                  # Equality gated in
-                                  # tests/test_decode_pallas.py
     phase_refine_iters: int = 3   # GUARDED decision-directed
                                   # phase-ramp passes (each applied
                                   # only where the decision error
@@ -293,23 +177,17 @@ class ModemConfig:
                                   # this-many data symbols (0 = the
                                   # full ns*data_symbols section).
                                   # The refit's Gram/b-vector/apply
-                                  # wide ops scale with the window.
-                                  # MEASURED round 5 (317k bits/pt,
-                                  # Wilson CIs; echo on CPU oracle):
-                                  # 128 is loss-free on every axis --
-                                  # AWGN 2/4/6 dB equal within CIs,
-                                  # 35 Hz CFO edge equal, harsh-echo
-                                  # (1.4 sym/-6 dB at 10 dB) 3.3e-4
-                                  # vs 3.4e-4 -- and buys +1.3%
-                                  # pipeline; bench.py runs 128 as
-                                  # its operating point (parity pin
-                                  # PARITY_TPU_R128.json).  64 buys
-                                  # +6% but costs ~0.1 dB AWGN, ~12%
-                                  # more errors at the CFO edge, and
-                                  # 1.7x the echo errors.  Library
-                                  # default 0 keeps the bit-exact
-                                  # pre-knob behavior (the parity
-                                  # surface)
+                                  # work scales with the window.
+                                  # Quality measured (317k bits/pt,
+                                  # Wilson CIs): 128 is loss-free on
+                                  # every axis -- AWGN 2/4/6 dB equal
+                                  # within CIs, 35 Hz CFO edge equal,
+                                  # harsh echo (1.4 sym/-6 dB at
+                                  # 10 dB) 3.3e-4 vs 3.4e-4; 64 costs
+                                  # ~0.1 dB AWGN, ~12% more errors at
+                                  # the CFO edge and 1.7x the echo
+                                  # errors.  Library default 0 keeps
+                                  # the full-window behavior
     frac_timing: bool = False     # sub-sample timing recovery: parabolic
                                   # interpolation of the correlation peak
                                   # + 2-tap fractional-delay blend at
@@ -377,7 +255,7 @@ class ModemConfig:
 
     @property
     def effective_peak_gate(self) -> float:
-        """Segment-normalized detection gate (what the kernels apply).
+        """Segment-normalized detection gate (what the receivers apply).
 
         The clean-signal correlation peak/energy ratio equals the
         SEGMENT LENGTH P/n_seg (each segment's coherent gain: peak =
@@ -445,27 +323,8 @@ class ModemConfig:
         if self.hunt_dtype not in ("bf16", "f32", "int8"):
             raise ValueError(
                 f"hunt_dtype must be bf16|f32|int8, got {self.hunt_dtype}")
-        if self.frontend_dtype not in ("bf16", "f32"):
-            raise ValueError(
-                f"frontend_dtype must be bf16|f32, got {self.frontend_dtype}")
-        if self.cfo_dtype not in ("f32", "bf16"):
-            raise ValueError(
-                f"cfo_dtype must be f32|bf16, got {self.cfo_dtype}")
-        if self.decim_dtype not in ("f32", "bf16"):
-            raise ValueError(
-                f"decim_dtype must be f32|bf16, got {self.decim_dtype}")
         if self.hunt_int8_scale <= 0:
             raise ValueError("hunt_int8_scale must be positive")
-        if self.ls_gram not in ("direct", "sliding"):
-            raise ValueError(
-                f"ls_gram must be direct|sliding, got {self.ls_gram}")
-        if self.ls_bvec not in ("reduce", "matmul"):
-            raise ValueError(
-                f"ls_bvec must be reduce|matmul, got {self.ls_bvec}")
-        if self.hunt_scheme not in ("chunk", "lagtile"):
-            raise ValueError(
-                f"hunt_scheme must be chunk|lagtile, got "
-                f"{self.hunt_scheme}")
         if self.hunt_norm not in ("energy", "espan", "none"):
             raise ValueError(
                 f"hunt_norm must be energy|espan|none, got "

@@ -1,12 +1,12 @@
 """Modem constant tables.
 
-TPU-native equivalent of the reference's ``src/constants.c``: the
+Equivalent of the reference's ``src/constants.c``: the
 128-chip PN preamble (constants.c:25-42) is transcribed as data; the
 two 49-tap RRC tables (constants.c:49-99, 106-156) are *regenerated*
 from the filter designer (filter_design.py) rather than pasted, and
 golden-compared against the C tables in tests.  The DVB scrambler
 keystream (src/scramble.c:57-68) is data-independent, so it is
-precomputed here once as a bit array -- descrambling on TPU is then a
+precomputed here once as a bit array -- descrambling is then a
 vectorized XOR, no sequential LFSR loop.
 """
 

@@ -2,6 +2,7 @@ from .fir import fir_block, fir_init_state, banded_fir_matrix
 from .mixer import mixer_table, mix_block, mixer_init_phase
 from .decimate import decimate, decimate_at
 from .correlate import preamble_corr_matrix, preamble_correlate, window_energy
+from .frontend import frontend_planes, frontend_reference
 
 __all__ = [
     "fir_block",
@@ -15,4 +16,6 @@ __all__ = [
     "preamble_corr_matrix",
     "preamble_correlate",
     "window_energy",
+    "frontend_planes",
+    "frontend_reference",
 ]

@@ -4,7 +4,7 @@ Replaces the reference's 128-lag sliding-window loop (reference:
 src/qpsk.c:176-183 calling correlate() at qpsk.c:88-96) with a single
 complex matmul: the lag windows form a banded Toeplitz structure, so
 ``corr = d_window @ W`` with ``W[i+k, i] = preamble[k]`` computes all
-lags at once on the MXU, batched over channels.
+lags at once, batched over channels.
 
 The reference correlator multiplies ``preambletable[i] * symbol[j]``
 WITHOUT conjugation (qpsk.c:92) -- it works because every preamble chip
@@ -21,8 +21,8 @@ import functools
 
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
-from ..utils.compat import device_complex
 
 
 @functools.lru_cache(maxsize=8)
@@ -48,10 +48,10 @@ def preamble_correlate(symbols, preamble: np.ndarray, n_lags: int):
     (matches fabsf(cnormf(out)), qpsk.c:95).
     """
     p = len(preamble)
-    w = device_complex(preamble_corr_matrix(
+    w = jnp.asarray(preamble_corr_matrix(
         tuple(np.asarray(preamble, np.complex64)), n_lags))
     d = symbols[..., :n_lags + p - 1]
-    out = d @ w                       # [..., n_lags] complex
+    out = jnp.matmul(d, w, precision=lax.Precision.HIGHEST)  # [.., n_lags]
     power = out.real ** 2 + out.imag ** 2
     return jnp.abs(power)
 

@@ -1,6 +1,6 @@
 """Batched streaming complex FIR (RRC pulse shaping / matched filter).
 
-TPU-native replacement for the reference's one-sample-at-a-time delay
+Replacement for the reference's one-sample-at-a-time delay
 line (reference: src/fir.c:22-43).  The C code shifts a 49-tap memory
 and accumulates ``y = sum_i memory[i] * coeff[i]`` per sample; that is
 exactly cross-correlation of the tap vector with the trailing window,
@@ -10,12 +10,10 @@ just the last ``ntaps-1`` input samples.
 
 Two equivalent compute paths:
 
-* ``direct``: ``lax.conv_general_dilated`` over the real/imag planes
-  (XLA lowers to the VPU; fine at small batch).
+* ``direct``: ``lax.conv_general_dilated`` over the real/imag planes.
 * ``banded``: the convolution recast as a dense matmul against a banded
-  [win, tile] matrix so the MXU does the work -- at large channel
-  counts this is the fast path (the MXU has ~50x the f32 throughput of
-  the VPU and the band matrix is reused across all channels/tiles).
+  [win, tile] matrix (reused across all channels/tiles), so the
+  matrix units do the work at large channel counts.
 
 Both orderings reassociate the float32 sum relative to the C loop;
 golden tests bound the difference (tests/test_fir.py).
@@ -30,19 +28,16 @@ import jax.numpy as jnp
 import numpy as np
 from jax import lax
 
-_LANE = 128  # TPU lane width; banded tiles are one lane wide
+_TILE = 128  # outputs per banded tile
 
 
 def fir_init_state(ntaps: int, batch_shape=(), dtype=jnp.complex64):
     """Zero delay-line halo: the last ``ntaps-1`` inputs (fir.c:30-34)."""
-    if dtype == jnp.complex64:
-        from ..utils.compat import czeros
-        return czeros((*batch_shape, ntaps - 1))
     return jnp.zeros((*batch_shape, ntaps - 1), dtype)
 
 
 @functools.lru_cache(maxsize=16)
-def banded_fir_matrix(taps_key, ntaps: int, tile: int = _LANE) -> np.ndarray:
+def banded_fir_matrix(taps_key, ntaps: int, tile: int = _TILE) -> np.ndarray:
     """Banded matrix W[win, tile] with W[t+k, t] = taps[k].
 
     ``y_tile = x_window @ W`` computes ``y[t] = sum_k x[t+k] taps[k]``
@@ -78,8 +73,8 @@ def _fir_direct(taps, x_ext, n_out):
     return lax.complex(out[0], out[1])
 
 
-def _fir_banded(taps, x_ext, n_out, tile=_LANE):
-    """Overlap-save banded matmul: tiles of ``tile`` outputs on the MXU."""
+def _fir_banded(taps, x_ext, n_out, tile=_TILE):
+    """Overlap-save banded matmul: tiles of ``tile`` outputs."""
     ntaps = len(taps)
     win = tile + ntaps - 1
     ntiles = -(-n_out // tile)
@@ -94,10 +89,9 @@ def _fir_banded(taps, x_ext, n_out, tile=_LANE):
     # band-matrix build.
     w = jnp.asarray(banded_fir_matrix(tuple(np.asarray(taps, np.float32)),
                                       ntaps, tile))
-    # HIGHEST: the TPU default single-pass bf16 dot costs ~1% relative
-    # error on the matched filter; downstream LS fits are sensitive
-    # (tools/tpu_parity.py: default precision = 264 bit errors on a
-    # 12 dB stream where full f32 = 0).
+    # HIGHEST: a reduced-precision dot (bf16 passes, or TF32 on a GPU)
+    # puts ~1e-3 relative error on the matched filter, and the
+    # downstream LS fits are sensitive to it.
     y = jnp.einsum("...jw,wt->...jt", windows, w,
                    precision=lax.Precision.HIGHEST)   # complex @ real
     y = y.reshape(*y.shape[:-2], ntiles * tile)

@@ -1,6 +1,6 @@
 """Carrier mixing (baseband <-> passband translation).
 
-TPU-native replacement for the reference's iterated running phasor
+Replacement for the reference's iterated running phasor
 (reference: src/qpsk.c:138-147 RX downmix, qpsk.c:301-306 TX upmix).
 The C code multiplies ``phase *= rect`` once per sample and renormalizes
 once per frame to fight float drift (qpsk.c:147, 306).  Here the
@@ -21,13 +21,11 @@ import functools
 import jax.numpy as jnp
 import numpy as np
 
-from ..utils.compat import device_complex
 
 
 def mixer_init_phase(batch_shape=()):
     """Initial unit phasor: cmplx(0) = 1+0j (qpsk.c:375, 427)."""
-    from ..utils.compat import cones
-    return cones(batch_shape)
+    return jnp.ones(batch_shape, jnp.complex64)
 
 
 @functools.lru_cache(maxsize=32)
@@ -48,10 +46,10 @@ def downmix_tail(center: float, fs: float, n: int, halo: int,
     ``x_t``: [..., halo] f32 last-halo raw samples already scaled to
     matched-filter units; ``ph_r``/``ph_i``: phase planes at the START
     of the block the samples came from, broadcastable against x_t.
-    This is the parity-critical carry-out formula shared by
-    fused_rx_block's final-state glue, prod_rx_batch's per-block tail
-    assembly, and the gated pipeline's pair seeds -- one definition so
-    the three stay fp-identical (code-review r5 finding #2).
+    This is the parity-critical carry formula shared by the batch
+    core's per-block seeds and carry-out, the gated pipeline's pair
+    seeds and the 2D grid's halo seeds -- one definition so they stay
+    fp-identical.
     """
     table = mixer_table(-center, fs, n)
     tr = jnp.asarray(table.real[n - halo:])
@@ -74,7 +72,7 @@ def mix_block(x, phase, freq_hz: float, fs: float):
       fs:      sample rate.
     """
     n = x.shape[-1]
-    table = device_complex(mixer_table(float(freq_hz), float(fs), int(n)))
+    table = jnp.asarray(mixer_table(float(freq_hz), float(fs), int(n)))
     y = x * (phase[..., None] * table)
     new_phase = phase * table[n - 1]
     new_phase = new_phase / jnp.abs(new_phase)

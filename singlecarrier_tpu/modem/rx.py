@@ -1,6 +1,6 @@
 """QPSK demodulator / RX chain.
 
-TPU-native port of the reference RX path (reference: src/qpsk.c:133-239):
+JAX port of the reference RX path (reference: src/qpsk.c:133-239):
 downmix -> RRC matched filter -> decimate-by-5 -> 128-lag preamble
 correlation hunt -> square-root-Kalman-trained equalizer over the 128
 known chips -> threshold detect -> decision-directed slicing of 31 data
@@ -10,7 +10,7 @@ Design (SURVEY.md section 7): every reference static becomes a field of
 the explicit per-channel ``RxState`` pytree; the per-frame step is a
 pure ``(cfg, state, pcm) -> (state, out)`` function; ``vmap`` adds the
 channel axis (the 1M-channel scaling axis) and ``lax.scan`` adds the
-frame/time axis.  The hot blocks (FIR, correlation) are MXU matmuls;
+frame/time axis.  The hot blocks (FIR, correlation) are matmuls;
 the only serial core is the 159-step Kalman/equalizer recursion, kept
 as a ``lax.scan`` whose state is ~70 floats per channel.
 
@@ -52,7 +52,6 @@ from ..dsp.correlate import preamble_correlate, window_energy
 from ..dsp.decimate import decimate_at
 from ..dsp.fir import fir_block, fir_init_state
 from ..dsp.mixer import mix_block, mixer_init_phase
-from ..utils.compat import czeros
 
 HUNT = 0
 PROCESS = 1
@@ -93,8 +92,8 @@ def rx_init(cfg: ModemConfig, batch_shape=()) -> RxState:
     return RxState(
         phase=mixer_init_phase(batch_shape),
         fir_tail=fir_init_state(cfg.ntaps, batch_shape),
-        raw_prev=czeros((*batch_shape, cfg.frame_size)),
-        decim_prev=czeros((*batch_shape, n_sym)),
+        raw_prev=jnp.zeros((*batch_shape, cfg.frame_size), jnp.complex64),
+        decim_prev=jnp.zeros((*batch_shape, n_sym), jnp.complex64),
         rx_timing=jnp.full(batch_shape, cfg.fine_timing_offset, jnp.int32),
         scramble_offset=jnp.zeros(batch_shape, jnp.int32),
         sm_state=jnp.full(batch_shape, HUNT, jnp.int32),

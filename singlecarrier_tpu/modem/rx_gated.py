@@ -1,40 +1,38 @@
 """Detection-gated two-phase RX: the sparse-deployment wrapper.
 
-The full fused kernel spends ~half its in-kernel time in the decode
-tail (CFO search, de-rotation, train, refit, refine) for EVERY
-block-channel, although ~1e-5 of noise blocks and ~2/3 of even a
-dense real-packet stream's block-channels detect (the hit/miss branch
-the reference takes per frame, reference: src/qpsk.c:196-236,
-generalized to masked dataflow).  For sparse/monitoring deployments
-the measured cost model (tools/gated_decode_bench.py ->
-GATED_DECODE.json: 1.73x at 1e-3 density) favors a two-phase pipeline:
+The decode tail (CFO search, de-rotation, train, refit, refine) runs
+for EVERY block-channel in ``prod_rx_batch``, although only a small
+fraction of a monitoring deployment's block-channels detect (the
+hit/miss branch the reference takes per frame, reference:
+src/qpsk.c:196-236, generalized to masked dataflow).  The gated
+receiver splits the batch core in two:
 
-  phase 1  the fused kernel truncated after the energy gate
-           (``stage="gate"``: front-end + hunt + extraction + gate --
-           the same VMEM ring walk and the same carried stream state
-           as the full kernel, ops/decode_pallas._decode_core).
+  phase 1  the core cut after the hunt and the energy gate (front-end
+           + hunt + extraction + gate, with the same carried stream
+           state as the full core).
   compact  shape-static detected-first ordering (argsort of the gate
-           flags -- the TPU-idiomatic substitute for data-dependent
+           flags -- a static-shape substitute for data-dependent
            ``nonzero``) + gather of each detection's (prev, cur) raw
            PCM pair and closed-form mixer-phase / FIR-tail seeds.
-  phase 2  the SAME fused kernel over the compacted [2, K] pair batch:
-           block 0 rebuilds the hunt window (decim ring), block 1's
-           stats are the decode -- bit-identical to the full path
-           (verified on hardware by the bench tool, and across a
-           dispatch seam on CPU by tests/test_gated_rx.py).
+  phase 2  the SAME core over the compacted [2, K] pair batch: block 0
+           is a halo block that rebuilds the hunt window, block 1 is
+           the decode -- decisions identical to the full path
+           (tests/test_gated_rx.py, across a dispatch seam too).
 
-This wrapper adds the STREAMING state the bench prototype lacked: a
-detection at block 0 of a dispatch needs the PREVIOUS dispatch's last
-PCM block as its pair's prev, and that pair's FIR-tail seed needs the
-raw halo of the block before that.  Both ride ``GatedRxState``, so
-back-to-back ``prod_rx_batch_gated`` calls decode boundary-spanning
-packets exactly like one big dispatch.
+The streaming state: a detection at block 0 of a dispatch needs the
+PREVIOUS dispatch's last PCM block as its pair's prev, and that pair's
+FIR-tail seed needs the raw halo of the block before that.  Both ride
+``GatedRxState``, so back-to-back ``prod_rx_batch_gated`` calls decode
+boundary-spanning packets exactly like one big dispatch.
 
 K (``max_detections``) is a CAPACITY, not a count: rows past the
 number of gate hits decode garbage and are masked by their own phase-2
 gate; if more than K block-channels fire, the overflow is reported in
 ``out["count"]`` (> K means truncation -- size K for the deployment's
-density, e.g. 4x the expected hits per dispatch).
+density of GATE hits, e.g. 4x the expected hits per dispatch).  The
+gate alone fires far more often than the full criterion: on partial
+preambles, and on block 0 of a fresh stream, whose previous-block half
+is silence.
 """
 
 from __future__ import annotations
@@ -47,18 +45,17 @@ import numpy as np
 
 from ..config import ModemConfig
 from ..dsp.mixer import downmix_tail
-from ..ops.fused_rx import fused_rx_block
-from .rx_production import (_auto_cb, dibits_to_bits,
+from .rx_production import (_advances, _carry_out, _rx_core,
                             prod_rx_init_planes)
 
 
 class GatedRxState(NamedTuple):
     """Streaming state of the gated pipeline.
 
-    ``planes`` is the standard fused-path plane tuple
-    (phase_r, phase_i, tail_r, tail_i [C, ntaps-1], decim ring
-    [cyc, 2, C, n_sym]); the two PCM leaves carry what phase 2 needs
-    to rebuild a block-0 detection's pair across the dispatch seam.
+    ``planes`` is the batch core's plane tuple
+    (``prod_rx_init_planes``); the two PCM leaves carry what phase 2
+    needs to rebuild a block-0 detection's pair across the dispatch
+    seam.
     """
     planes: tuple
     pcm_prev: jnp.ndarray        # [C, n] i16 last block of prev dispatch
@@ -77,15 +74,13 @@ def _pair_operands(cfg: ModemConfig, gated, pcm, p0r, p0i, K,
                    pcm_prev, pcm_prev2_tail):
     """Detected-first ordering + gather of the phase-2 pair operands.
 
-    Arithmetic is IDENTICAL to tools/gated_decode_bench.py's verified
-    prototype (f64-tabulated closed-form phase advances; the same
-    downmix tail construction as fused_rx_block's carry-out), extended
-    with the carried cross-dispatch PCM for b < 2.
+    The seeds use the batch core's arithmetic (f64-tabulated
+    closed-form phase advances, the shared ``downmix_tail``), with the
+    carried cross-dispatch PCM for b < 2.
     """
     n = cfg.frame_size
     halo = cfg.ntaps - 1
     B, C = pcm.shape[0], pcm.shape[1]
-    w_ = -2.0 * np.pi * cfg.center / cfg.fs
 
     flat = gated.reshape(-1)                       # [B*C] bool
     order = jnp.argsort(~flat)[:K]                 # detected first
@@ -104,15 +99,13 @@ def _pair_operands(cfg: ModemConfig, gated, pcm, p0r, p0i, K,
     # phase entering the PAIR = phase of block b-1 (adv^(b-1); b=0 ->
     # adv^-1 = the phase at the start of the carried prev block, since
     # p0 is the phase AFTER it)
-    advm = np.exp(1j * w_ * n * (np.arange(B + 1) - 1.0)
-                  ).astype(np.complex64)
+    advm = _advances(cfg, np.arange(B + 1) - 1.0)
     ar = jnp.asarray(advm.real)[b_idx]
     ai = jnp.asarray(advm.imag)[b_idx]
     pr = p0r[c_idx] * ar - p0i[c_idx] * ai
     pi = p0r[c_idx] * ai + p0i[c_idx] * ar
     # FIR tail entering block b-1 = downmixed halo of block b-2's PCM
-    advm2 = np.exp(1j * w_ * n * (np.arange(B + 1) - 2.0)
-                   ).astype(np.complex64)
+    advm2 = _advances(cfg, np.arange(B + 1) - 2.0)
     ar2 = jnp.asarray(advm2.real)[b_idx]
     ai2 = jnp.asarray(advm2.imag)[b_idx]
     pr2 = p0r[c_idx] * ar2 - p0i[c_idx] * ai2
@@ -132,33 +125,26 @@ def _pair_operands(cfg: ModemConfig, gated, pcm, p0r, p0i, K,
 
 def prod_rx_batch_gated(cfg: ModemConfig, state: GatedRxState,
                         pcm_frames, *, max_detections: int,
-                        block_channels=None, descramble: bool = True,
-                        interpret: bool = False):
+                        descramble: bool = True):
     """Two-phase gated RX over [B, C, frame_size] int16 frames.
 
     Returns ``(state', out)``.  ``out`` holds the phase-1 gate summary
     (``count`` = gate hits this dispatch; > max_detections means
     truncation) plus COMPACTED phase-2 results, each [K]-leading:
-    ``valid`` (full criterion: gate AND matches), ``dibits``
-    [K, frame_symbols], ``matches``, ``lag``, ``timing_phase``,
+    ``valid`` (full criterion: gate AND matches), ``bits``
+    [K, bits_per_frame], ``matches``, ``lag``, ``timing_phase``,
     ``peak``, ``energy``, ``cfo_hz``, ``eq_error``, and the stream
     coordinates ``block_idx`` / ``channel_idx`` of each row.
     """
-    B, C = pcm_frames.shape[0], pcm_frames.shape[1]
+    B = pcm_frames.shape[0]
     n = cfg.frame_size
     halo = cfg.ntaps - 1
     K = max_detections
-    # divisor-aware channel-block picks (code-review r5 finding #1:
-    # min(128, C) crashed legal non-128-multiple C, and the phase-2
-    # batch of K pairs needs its own divisor)
-    cb = block_channels if block_channels else _auto_cb(C, 128)
-    p0r, p0i, t0r, t0i, dp = state.planes
+    p0r, p0i = state.planes[0], state.planes[1]
 
     # ---- phase 1: gate ----
-    dec_g, dlast, (fr, fi, ftr, fti) = fused_rx_block(
-        cfg, pcm_frames, p0r, p0i, t0r, t0i, dp, stage="gate",
-        descramble=descramble, block_channels=cb, interpret=interpret)
-    gated = dec_g["gated"]
+    gated, dlast = _rx_core(cfg, pcm_frames, state.planes,
+                            gate_only=True)
     count = gated.sum().astype(jnp.int32)
 
     # ---- compact ----
@@ -166,37 +152,29 @@ def prod_rx_batch_gated(cfg: ModemConfig, state: GatedRxState,
         cfg, gated, pcm_frames, p0r, p0i, K,
         state.pcm_prev, state.pcm_prev2_tail)
 
-    # ---- phase 2: decode the compacted pairs ----
-    ddt = jnp.bfloat16 if cfg.decim_dtype == "bf16" else jnp.float32
-    dp0 = jnp.zeros((cfg.cycles, 2, K, cfg.symbols_per_block), ddt)
-    kb = min(block_channels, K) if block_channels else _auto_cb(K, 128)
-    dec2, _, _ = fused_rx_block(
-        cfg, pairs, pr, pi, tl_r, tl_i, dp0, descramble=descramble,
-        block_channels=kb, interpret=interpret)
-    # block 1's rows are the decode (block 0 rebuilt the hunt window)
-    dec2 = jax.tree.map(lambda x: x[K:], dec2)
+    # ---- phase 2: decode the compacted pairs (block 0 = halo) ----
+    dec, _ = _rx_core(cfg, pairs, (pr, pi, tl_r, tl_i, None),
+                      descramble=descramble)
+    dec = jax.tree.map(lambda x: x[0], dec)
 
     in_cap = jnp.arange(K) < jnp.minimum(count, K)
-    bits = dibits_to_bits(dec2["dibits"])        # rx_production layout
     out = {
         "count": count,
         "block_idx": b_idx.astype(jnp.int32),
         "channel_idx": c_idx.astype(jnp.int32),
-        "valid": (dec2["gated"] & in_cap
-                  & (dec2["matches"] > cfg.match_threshold)),
-        "bits": bits,
-        "dibits": dec2["dibits"],
-        "matches": dec2["matches"],
-        "lag": dec2["lag"],
-        "timing_phase": dec2["phase_idx"],
-        "peak": dec2["peak"],
-        "energy": dec2["energy"],
-        "cfo_hz": dec2["cfo_hz"],
-        "eq_error": dec2["eq_error"],
+        "valid": dec.valid & in_cap,
+        "bits": dec.bits,
+        "matches": dec.matches,
+        "lag": dec.lag,
+        "timing_phase": dec.timing_phase,
+        "peak": dec.peak,
+        "energy": dec.energy,
+        "cfo_hz": dec.cfo_hz,
+        "eq_error": dec.eq_error,
     }
 
     new_state = GatedRxState(
-        planes=(fr, fi, ftr, fti, dlast),
+        planes=(*_carry_out(cfg, pcm_frames, p0r, p0i), dlast),
         pcm_prev=pcm_frames[-1],
         pcm_prev2_tail=(pcm_frames[-2, :, n - halo:] if B >= 2
                         else state.pcm_prev[:, n - halo:]),

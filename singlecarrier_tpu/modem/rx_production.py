@@ -25,9 +25,24 @@ fixes the intent-vs-implementation gaps documented in SURVEY.md:
    SURVEY.md quirk #3).
 
 Per-block latency is one frame (the hunt window is [prev | cur]); every
-stream position is searched exactly once.  The whole step is pure
-``(cfg, state, pcm) -> (state, out)``; ``vmap`` over channels is the
-scaling axis, ``lax.scan`` over blocks the streaming axis.
+stream position is searched exactly once.
+
+Two forms of the same receiver:
+
+ * ``prod_rx_frame`` / ``prod_rx_stream`` -- one block per step,
+   ``lax.scan`` over blocks, ``vmap`` over channels.  This is the
+   oracle the batch receiver is tested against.
+ * ``prod_rx_batch`` -- the block-parallel core.  Every carry is a
+   closed form of the raw input, so all (block, channel) pairs of a
+   dispatch run at once; ``prod_rx_stream_superstep``, the gated
+   two-phase receiver (modem/rx_gated.py) and the sharded programs
+   (parallel/sharded_rx.py) are thin wrappers over it.
+
+Matmul precision is stated wherever a decision depends on the product:
+float32 operands run at ``Precision.HIGHEST`` (a GPU would otherwise
+round them to TF32).  The hunt's bf16 and int8 modes round the window
+planes to their dtype by choice (``cfg.hunt_dtype``); the chip matrix
+is exact in either, and accumulation is float32 / int32.
 """
 
 from __future__ import annotations
@@ -46,10 +61,16 @@ from ..config import ModemConfig
 from ..constants import PREAMBLE_VALUES, rrc_taps
 from ..dsp.fftops import estimate_cfo
 from ..dsp.fir import fir_block, fir_init_state
-from ..dsp.mixer import (downmix_tail, mix_block, mixer_init_phase,
-                         mixer_table)
+from ..dsp.frontend import frontend_planes
+from ..dsp.mixer import downmix_tail, mix_block, mixer_init_phase
 from ..scramble import scramble_dibits
-from ..utils.compat import czeros
+
+_HI = lax.Precision.HIGHEST
+
+# Device bytes the batch core may hold in per-pair intermediates at
+# once; it maps over channel chunks sized to fit (``_max_channels``,
+# read at trace time).
+WORK_BYTES = 4 << 30
 
 
 class ProdRxState(NamedTuple):
@@ -74,51 +95,48 @@ def prod_rx_init(cfg: ModemConfig, batch_shape=()) -> ProdRxState:
     return ProdRxState(
         phase=mixer_init_phase(batch_shape),
         fir_tail=fir_init_state(cfg.ntaps, batch_shape),
-        decim_prev=czeros(
-            (*batch_shape, cfg.cycles, cfg.symbols_per_block)),
+        decim_prev=jnp.zeros(
+            (*batch_shape, cfg.cycles, cfg.symbols_per_block),
+            jnp.complex64),
     )
 
 
 def prod_rx_init_planes(cfg: ModemConfig, channels: int):
-    """Plane-typed RX state for the fast batch path.
+    """Plane-typed RX state for the batch path.
 
     Layout: ``(phase_r [C], phase_i [C], fir_tail_r [C, ntaps-1],
-    fir_tail_i [C, ntaps-1], decim_prev_t [cyc, 2, C, n_sym])`` with
-    ``decim_prev_t`` in ``cfg.decim_dtype`` -- EXACTLY the layout the
-    fused kernels consume.  Carrying this tuple across ``prod_rx_batch``
-    dispatches skips the complex<->plane conversion and the
-    [C, cyc, n_sym] <-> [cyc, 2, C, n_sym] transposes of ~1 GB-scale
-    state arrays that dominated the non-kernel dispatch cost
-    (measured ~0.05 us/blk-ch at the 524k operating point).
+    fir_tail_i [C, ntaps-1], decim_prev [C, cyc, 2, n_sym])``, all
+    float32 and channel-major -- the layout the batch core reads and
+    writes, so carrying this tuple across ``prod_rx_batch`` dispatches
+    needs no complex<->plane conversion or transpose.
     """
-    ddt = jnp.bfloat16 if cfg.decim_dtype == "bf16" else jnp.float32
     return (jnp.ones((channels,), jnp.float32),
             jnp.zeros((channels,), jnp.float32),
             jnp.zeros((channels, cfg.ntaps - 1), jnp.float32),
             jnp.zeros((channels, cfg.ntaps - 1), jnp.float32),
-            jnp.zeros((cfg.cycles, 2, channels, cfg.symbols_per_block),
-                      ddt))
+            jnp.zeros((channels, cfg.cycles, 2, cfg.symbols_per_block),
+                      jnp.float32))
 
 
-def state_to_planes(cfg: ModemConfig, state: ProdRxState):
+def state_to_planes(state: ProdRxState):
     """ProdRxState -> the plane tuple (one-time conversion)."""
-    ddt = jnp.bfloat16 if cfg.decim_dtype == "bf16" else jnp.float32
-    dprev_t = jnp.transpose(
-        jnp.stack([state.decim_prev.real, state.decim_prev.imag],
-                  axis=0), (2, 0, 1, 3)).astype(ddt)
+    dprev = jnp.stack([state.decim_prev.real, state.decim_prev.imag],
+                      axis=-2)
     return (state.phase.real, state.phase.imag,
-            state.fir_tail.real, state.fir_tail.imag, dprev_t)
+            state.fir_tail.real, state.fir_tail.imag, dprev)
 
 
 def planes_to_state(planes) -> ProdRxState:
     """Plane tuple -> ProdRxState (one-time conversion)."""
-    pr, pi_, tr, ti, dprev_t = planes
+    pr, pi_, tr, ti, dprev = planes
     return ProdRxState(
         phase=lax.complex(pr, pi_),
         fir_tail=lax.complex(tr, ti),
-        decim_prev=lax.complex(
-            jnp.transpose(dprev_t[:, 0], (1, 0, 2)).astype(jnp.float32),
-            jnp.transpose(dprev_t[:, 1], (1, 0, 2)).astype(jnp.float32)))
+        decim_prev=lax.complex(dprev[..., 0, :], dprev[..., 1, :]))
+
+
+# ---------------------------------------------------------------------------
+# Hunt: segmented preamble correlation over every (phase, lag)
 
 
 @functools.lru_cache(maxsize=8)
@@ -131,8 +149,7 @@ def _segment_band_matrix(n_lags: int, n_segments: int, p: int):
     factors: sum c_k s[l+k] = (1+j) * (real-kernel correlation), and
     |corr|^2 = 2 * |...|^2.  Splitting v into ``n_segments`` pieces
     gives the CFO-tolerant non-coherent hunt; one dense [win,
-    n_lags*n_seg] matmul computes every (lag, segment) partial sum --
-    MXU-shaped, and tolerant of bf16 (it is only a peak statistic).
+    n_lags*n_seg] matmul computes every (lag, segment) partial sum.
     """
     v = PREAMBLE_VALUES.astype(np.float32)
     seg = p // n_segments
@@ -162,44 +179,40 @@ def _hunt_metric(cfg: ModemConfig, power, sq):
     """Hunt argmax statistic from the raw segmented power.
 
     ``power``: [..., cyc, n_lags]; ``sq``: squared window magnitude
-    [..., cyc, >=n_lags+p-1].  With cfg.hunt_norm == "energy" the
+    [..., cyc, n_lags+p-1].  With cfg.hunt_norm == "energy" the
     statistic is power / window-energy per lag (see config.hunt_norm);
     "none" returns the raw power.  The argmax consumer reads PEAK as
     raw power at the chosen lag either way -- the gate semantics never
-    change.
+    change.  The energy contraction runs in full float32 (HIGHEST): it
+    is a sum of non-negative terms whose rounding moves the argmax.
     """
     if cfg.hunt_norm not in ("energy", "espan"):
         return power
-    # f32 contraction, matching the kernel's (measured: bf16 energy
-    # operands are SLOWER in the issue-bound fused kernel -- the cast
-    # wide ops outweigh the MXU-rate win; decode_pallas notes).
     eband = jnp.asarray(_energy_band_matrix(cfg.symbols_per_block,
                                             cfg.preamble_length))
-    sq = sq.astype(jnp.float32)
     if cfg.hunt_norm == "espan":
         # Full-rate span energy shared across phases: sum the squared
-        # planes FIRST (explicit left-associated adds, mirroring the
-        # kernel's phase loop bit-for-bit), then one band contraction.
+        # planes first (explicit left-associated adds), then one band
+        # contraction.
         ssum = sq[..., 0, :]
         for c in range(1, sq.shape[-2]):
             ssum = ssum + sq[..., c, :]
-        energy = jnp.matmul(ssum, eband,
+        energy = jnp.matmul(ssum, eband, precision=_HI,
                             preferred_element_type=jnp.float32)
         return power / (energy[..., None, :] + jnp.float32(1e-12))
-    energy = jnp.matmul(sq, eband,
+    energy = jnp.matmul(sq, eband, precision=_HI,
                         preferred_element_type=jnp.float32)
     return power / (energy + jnp.float32(1e-12))
 
 
 def _hunt_corr(cfg: ModemConfig, planes, mat):
-    """Correlation matmul in ``cfg.hunt_dtype`` (shared by the _hunt
-    variants; the Pallas kernel mirrors this math in
-    ops/decode_pallas._hunt_decode_core).
+    """Correlation matmul in ``cfg.hunt_dtype``.
 
     "int8" quantizes q = clip(round(x*s), +/-127) and contracts
-    against the +/-1/0 chip matrix at the MXU's doubled int8 rate;
-    int32 accumulation is exact, so there is no reassociation at all
-    in the int8 path.  ``planes``: [..., rows, win] f32.
+    against the +/-1/0 chip matrix with int32 accumulation, which is
+    exact.  "bf16" rounds the window planes to bf16 (the chip matrix is
+    exact in bf16) and accumulates in float32.  "f32" runs at HIGHEST.
+    ``planes``: [..., rows, win] f32.
     """
     if cfg.hunt_dtype == "int8":
         s = jnp.float32(cfg.hunt_int8_scale)
@@ -208,8 +221,11 @@ def _hunt_corr(cfg: ModemConfig, planes, mat):
         return jnp.matmul(q, mat.astype(jnp.int8),
                           preferred_element_type=jnp.int32
                           ).astype(jnp.float32)
-    dt = jnp.bfloat16 if cfg.hunt_dtype == "bf16" else jnp.float32
-    return jnp.matmul(planes.astype(dt), mat.astype(dt),
+    if cfg.hunt_dtype == "bf16":
+        return jnp.matmul(planes.astype(jnp.bfloat16),
+                          mat.astype(jnp.bfloat16),
+                          preferred_element_type=jnp.float32)
+    return jnp.matmul(planes, mat, precision=_HI,
                       preferred_element_type=jnp.float32)
 
 
@@ -222,44 +238,58 @@ def _hunt_power_scale(cfg: ModemConfig) -> float:
     return 2.0
 
 
-def _hunt(cfg: ModemConfig, windows):
-    """Find the (phase, lag) correlation peak.
+def _hunt_power(cfg: ModemConfig, w):
+    """Segmented correlation power and argmax statistic.
 
-    ``windows``: [cycles, 2*n_sym] decimated symbol windows per phase
-    (a leading batch axis is also supported).  Returns
-    (lag, phase_idx, peak, energy_at_peak).
+    ``w``: [..., cyc, 2, >= n_lags+p-1] real/imag window planes.
+    Returns (power, metric), both [..., cyc, n_lags].
 
     Metric: sum_s 2*|corr_s(l)|^2 over the ``corr_segments`` pieces of
     the PN -- segments combine by power so a carrier offset cannot
     cancel the sum; n_segments=1 recovers the reference's coherent
     correlator (qpsk.c:88-96) up to the constant factor 2.  Computed as
-    one banded matmul in ``hunt_dtype`` (bf16 by default: the MXU runs
-    it ~8x faster than f32 and a peak statistic does not need more).
+    one banded matmul in ``hunt_dtype``.
     """
     n_lags = cfg.symbols_per_block
     p = cfg.preamble_length
     n_seg = cfg.corr_segments
     mat = jnp.asarray(_segment_band_matrix(n_lags, n_seg, p))
 
-    batch_shape = windows.shape[:-2]
-    cyc = windows.shape[-2]
-    w = windows[..., :n_lags + p - 1]
-    # real/imag planes: [..., cyc*2, win] @ [win, lags*seg]
-    planes = jnp.stack([w.real, w.imag], axis=-2)
-    planes = planes.reshape(*batch_shape, cyc * 2, -1)
+    w = w[..., :n_lags + p - 1]
+    batch_shape = w.shape[:-3]
+    cyc = w.shape[-3]
+    planes = w.reshape(*batch_shape, cyc * 2, -1)
     corr = _hunt_corr(cfg, planes, mat)
     corr = corr.reshape(*batch_shape, cyc, 2, n_lags, n_seg)
-    power = _hunt_power_scale(cfg) * (corr * corr).sum(
-        axis=(-3, -1))                                 # [B, cyc, lags]
+    power = _hunt_power_scale(cfg) * (corr * corr).sum(axis=(-3, -1))
     metric = _hunt_metric(cfg, power,
-                          w.real * w.real + w.imag * w.imag)
+                          w[..., 0, :] * w[..., 0, :]
+                          + w[..., 1, :] * w[..., 1, :])
+    return power, metric
 
-    flat_m = metric.reshape(*batch_shape, -1)
-    idx = jnp.argmax(flat_m, axis=-1)
-    flat = power.reshape(*batch_shape, -1)
-    peak = jnp.take_along_axis(flat, idx[..., None], -1)[..., 0]
-    phase_idx = (idx // n_lags).astype(jnp.int32)
-    lag = (idx % n_lags).astype(jnp.int32)
+
+def _hunt_argmax(power, metric):
+    """First (phase-major) argmax of ``metric``; returns (lag,
+    phase_idx, peak) with peak the raw power there."""
+    batch_shape = power.shape[:-2]
+    n_lags = power.shape[-1]
+    idx = jnp.argmax(metric.reshape(*batch_shape, -1), axis=-1)
+    peak = jnp.take_along_axis(power.reshape(*batch_shape, -1),
+                               idx[..., None], -1)[..., 0]
+    return ((idx % n_lags).astype(jnp.int32),
+            (idx // n_lags).astype(jnp.int32), peak)
+
+
+def _hunt(cfg: ModemConfig, windows):
+    """Find the (phase, lag) correlation peak.
+
+    ``windows``: [..., cycles, 2*n_sym] complex decimated symbol
+    windows per phase.  Returns (lag, phase_idx, peak, frac).
+    """
+    w = jnp.stack([windows.real, windows.imag], axis=-2)
+    power, metric = _hunt_power(cfg, w)
+    lag, phase_idx, peak = _hunt_argmax(power, metric)
+    batch_shape = windows.shape[:-2]
 
     # Sub-sample timing: a (lag, phase) pair IS an absolute sample
     # position t = lag*cycles + phase; the correlation power at t-1 /
@@ -283,10 +313,17 @@ def _hunt(cfg: ModemConfig, windows):
         frac = jnp.where((t > 0) & (t < tmax), frac, 0.0)
     else:
         frac = jnp.zeros(batch_shape, jnp.float32)
-    # Window energy at the peak is computed later from the extracted
-    # packet (avoids a full [cyc, 2*n_sym] cumsum whose only consumer
-    # is one value).
     return lag, phase_idx, peak, frac
+
+
+def _hunt_planes(cfg: ModemConfig, windows):
+    """Plane-typed hunt: ``windows`` [..., cyc, 2, >=2*n_sym] f32.
+    Same metric as ``_hunt``; returns (lag, phase_idx, peak)."""
+    return _hunt_argmax(*_hunt_power(cfg, windows))
+
+
+# ---------------------------------------------------------------------------
+# Extraction + decode
 
 
 def _extract_packet(cfg: ModemConfig, windows, lag, phase_idx, frac):
@@ -332,13 +369,35 @@ def _extract_packet(cfg: ModemConfig, windows, lag, phase_idx, frac):
     return grid * (1.0 - af) + nb * af
 
 
+def _extract_packet_planes(cfg: ModemConfig, windows, lag, phase_idx):
+    """Plane-typed packet extraction (integer timing only).
+
+    ``windows``: [N, cyc, 2, 2*n_sym] f32.  pkt[t] =
+    windows[phase_idx, :, lag - off + t] (identical alignment to
+    ``_extract_packet`` with frac=0): an exact gather of the winning
+    phase, then one symbol-domain dynamic slice per pair.  Returns
+    complex [N, pkt_window].
+    """
+    off = cfg.eq_length // 2
+    pkt_len = cfg.pkt_window
+    W = windows.shape[-1]
+
+    sel = jnp.take_along_axis(
+        windows, phase_idx[:, None, None, None], axis=1)[:, 0]  # [N, 2, W]
+    rpad = max(0, (cfg.symbols_per_block - 1) + pkt_len - (off + W))
+    sp = jnp.pad(sel, ((0, 0), (0, 0), (off, rpad)))
+    pkt = jax.vmap(
+        lambda s, l: lax.dynamic_slice_in_dim(s, l, pkt_len, axis=-1)
+    )(sp, lag)
+    return lax.complex(pkt[:, 0], pkt[:, 1])
+
+
 def _train_and_decode(cfg: ModemConfig, pkt):
     """Closed-form equalizer fit + one-shot packet decode (no scans).
 
     ``pkt``: [pkt_window] CFO-corrected symbols ALIGNED so the first
-    preamble chip sits at index L//2 (see prod_rx_backend: one dynamic
-    gather extracts the packet; every offset here is static, so all
-    window matrices are static slices).  Replaces the reference's
+    preamble chip sits at index L//2 (every offset here is static, so
+    all window matrices are static slices).  Replaces the reference's
     serial train_eq x128 / data_eq recursion (qpsk.c:186-215) with the
     batch least-squares fit of the same problem
     (adaptive/ls_equalizer.py) -- the per-packet work is two matmuls, a
@@ -355,19 +414,76 @@ def _train_and_decode(cfg: ModemConfig, pkt):
     # recovers the estimation loss (adaptive/ls_equalizer.py ls_refit).
     # Guard: keep the refit only if it scores at least as well on the
     # KNOWN preamble chips (at low SNR decision-directed loops can
-    # reinforce their own errors).
+    # reinforce their own errors).  The chip scores are sign decisions,
+    # so their products run at HIGHEST.
     C_pre = window_matrix(pkt, off, cfg.preamble_length, cfg.eq_length)
     for _ in range(cfg.ls_refit_iters):
         cand = ls_refit(pkt, start, coeff, cfg.frame_symbols,
                         offtap_reg=cfg.ls_offtap_reg_refit,
                         n_fit=cfg.ls_refit_symbols)
-        m_old = jnp.sum(((C_pre @ coeff).real * pre_real) > 0, axis=-1)
-        m_new = jnp.sum(((C_pre @ cand).real * pre_real) > 0, axis=-1)
+        m_old = jnp.sum((jnp.matmul(C_pre, coeff, precision=_HI).real
+                         * pre_real) > 0, axis=-1)
+        m_new = jnp.sum((jnp.matmul(C_pre, cand, precision=_HI).real
+                         * pre_real) > 0, axis=-1)
         keep = (m_new >= m_old)
         coeff = jnp.where(keep[..., None], cand, coeff)
     raw = ls_decode(pkt, start, coeff, cfg.frame_symbols)
     _, dibits, err = phase_refine(raw, iterations=cfg.phase_refine_iters)
     return matches, dibits, err
+
+
+def dibits_to_bits(dibits):
+    """u8 dibits {0..3} -> the interleaved ProdRxOut.bits layout."""
+    d = dibits.astype(jnp.uint8)
+    return jnp.stack([d & 1, d >> 1], axis=-1).reshape(
+        *d.shape[:-1], -1).astype(jnp.uint8)
+
+
+def _gate(cfg: ModemConfig, pkt, peak):
+    """Energy gate (the gate the reference commented out, qpsk.c:196):
+    correlation peak against the window energy at the peak, taken from
+    the extracted packet's preamble chips.  Returns (gated, energy)."""
+    off = cfg.eq_length // 2
+    chips = pkt[..., off:off + cfg.preamble_length]
+    energy = jnp.sum(chips.real ** 2 + chips.imag ** 2, axis=-1)
+    return peak > energy * cfg.effective_peak_gate, energy
+
+
+def _decode_packet(cfg: ModemConfig, pkt, peak, lag, phase_idx, *,
+                   descramble: bool) -> ProdRxOut:
+    """Gate -> CFO -> de-rotate -> equalize -> slice -> descramble for
+    one aligned packet window ``pkt`` [pkt_window] complex."""
+    off = cfg.eq_length // 2
+    gated, energy = _gate(cfg, pkt, peak)
+
+    # FFT-based CFO search over the detected chips (promoted feature;
+    # the reference's fft.c is dead code -- SURVEY.md quirk #4).
+    chips = pkt[..., off:off + cfg.preamble_length]
+    pn = jnp.asarray(PREAMBLE_VALUES.astype(np.float32))
+    cfo_hz, _ = estimate_cfo(chips, pn, cfg.rs, nfft=cfg.cfo_nfft)
+    cfo_hz = jnp.where(gated, cfo_hz, 0.0)
+
+    # De-rotate so training and data see a stable constellation;
+    # rotation anchored at the preamble start (static index off).
+    k = jnp.arange(cfg.pkt_window, dtype=jnp.float32) - off
+    rot = jnp.exp(-1j * (2.0 * np.pi / cfg.rs) * cfo_hz[..., None] * k
+                  ).astype(jnp.complex64)
+
+    matches, dibits, eq_error = _train_and_decode(cfg, pkt * rot)
+    valid = gated & (matches > cfg.match_threshold)
+    if descramble:
+        # Per-packet keystream reset (DVB frame-sync intent,
+        # scramble.c:14-16).
+        dibits, _ = scramble_dibits(dibits, jnp.int32(0))
+    return ProdRxOut(
+        valid=valid, bits=dibits_to_bits(dibits), matches=matches,
+        lag=lag, timing_phase=phase_idx, peak=peak, energy=energy,
+        cfo_hz=cfo_hz, eq_error=eq_error,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Per-block oracle
 
 
 def prod_rx_backend(cfg: ModemConfig, decim_prev, filtered, *,
@@ -377,67 +493,19 @@ def prod_rx_backend(cfg: ModemConfig, decim_prev, filtered, *,
     Single-channel; takes the matched-filter output ``filtered``
     [frame_size] complex plus the previous block's decimated phases
     ``decim_prev`` [cycles, n_sym].  Returns ``(decim_cur, ProdRxOut)``.
-    Split out so the front-end can come from either the XLA path or the
-    Pallas fused kernel (ops/frontend_pallas.py).
     """
     n_sym = cfg.symbols_per_block
 
-    # All 5 decimation phases at once: [cycles, n_sym].
+    # All decimation phases at once: [cycles, n_sym].
     decim_cur = filtered.reshape(n_sym, cfg.cycles).T
 
     # Two-block hunt windows per phase: [cycles, 2*n_sym].
     windows = jnp.concatenate([decim_prev, decim_cur], axis=-1)
 
     lag, phase_idx, peak, frac = _hunt(cfg, windows)
-
-    # Extract the aligned packet window [pkt_window] with sub-sample
-    # timing correction (_extract_packet).  A scalar-start dynamic
-    # slice is far cheaper than an index-array gather on TPU; the first
-    # chip sits at static index L//2 so downstream offsets are static.
-    off = cfg.eq_length // 2
-    pkt_len = cfg.pkt_window
-    if windows.ndim == 2:
-        pkt = _extract_packet(cfg, windows, lag, phase_idx, frac)
-    else:
-        pkt = jax.vmap(
-            lambda w, l, p, f: _extract_packet(cfg, w, l, p, f)
-        )(windows, lag, phase_idx, frac)
-
-    # Energy gate (the gate the reference commented out, qpsk.c:196):
-    # window energy at the peak, from the extracted packet.
-    chips = pkt[..., off:off + cfg.preamble_length]
-    energy = jnp.sum(chips.real ** 2 + chips.imag ** 2, axis=-1)
-    gated = peak > energy * cfg.effective_peak_gate
-
-    # FFT-based CFO search over the detected chips (promoted feature;
-    # the reference's fft.c is dead code -- SURVEY.md quirk #4).
-    pn = jnp.asarray(PREAMBLE_VALUES.astype(np.float32))
-    cfo_hz, _ = estimate_cfo(chips, pn, cfg.rs, nfft=cfg.cfo_nfft)
-    cfo_hz = jnp.where(gated, cfo_hz, 0.0)
-
-    # De-rotate so training and data see a stable constellation;
-    # rotation anchored at the preamble start (static index off).
-    k = jnp.arange(pkt_len, dtype=jnp.float32) - off
-    rot = jnp.exp(-1j * (2.0 * np.pi / cfg.rs) * cfo_hz * k
-                  ).astype(jnp.complex64)
-    pkt = pkt * rot
-
-    matches, dibits, eq_error = _train_and_decode(cfg, pkt)
-    valid = gated & (matches > cfg.match_threshold)
-
-    if descramble:
-        # Per-packet keystream reset (DVB frame-sync intent,
-        # scramble.c:14-16).
-        dibits, _ = scramble_dibits(dibits, jnp.int32(0))
-
-    bits = jnp.stack([dibits & 1, dibits >> 1], axis=-1).reshape(
-        *dibits.shape[:-1], -1).astype(jnp.uint8)
-
-    out = ProdRxOut(
-        valid=valid, bits=bits, matches=matches, lag=lag,
-        timing_phase=phase_idx, peak=peak, energy=energy,
-        cfo_hz=cfo_hz, eq_error=eq_error,
-    )
+    pkt = _extract_packet(cfg, windows, lag, phase_idx, frac)
+    out = _decode_packet(cfg, pkt, peak, lag, phase_idx,
+                         descramble=descramble)
     return decim_cur, out
 
 
@@ -445,9 +513,7 @@ def prod_rx_frame(cfg: ModemConfig, state: ProdRxState, pcm, *,
                   descramble: bool = True):
     """Demodulate one frame_size block; returns ``(state, ProdRxOut)``.
 
-    Single-channel; ``jax.vmap`` supplies the channel axis.  XLA
-    front-end (dsp/mixer.py + dsp/fir.py); for the Pallas fused
-    front-end use ``prod_rx_stream_pallas``.
+    Single-channel; ``jax.vmap`` supplies the channel axis.
     """
     taps = rrc_taps(cfg.alpha, cfg.ntaps)
 
@@ -473,190 +539,215 @@ def prod_rx_stream(cfg: ModemConfig, state: ProdRxState, pcm_frames, *,
     return lax.scan(body, state, pcm_frames)
 
 
-def _hunt_planes(cfg: ModemConfig, windows, *, col_offset: int = 0):
-    """Plane-typed hunt: ``windows`` [C, cyc, 2, >=2*n_sym] f32
-    (real/imag planes on axis 2).  Same metric as ``_hunt``; returns
-    (lag, phase_idx, peak).  ``col_offset`` skips leading pad columns
-    (the fused-extract path stores windows left-padded by eq_length//2
-    so the DMA extraction can index packets at ``lag`` directly)."""
-    n_lags = cfg.symbols_per_block
-    p = cfg.preamble_length
-    n_seg = cfg.corr_segments
-    mat = jnp.asarray(_segment_band_matrix(n_lags, n_seg, p))
-
-    C, cyc = windows.shape[0], windows.shape[1]
-    w = windows[..., col_offset:col_offset + n_lags + p - 1]
-    planes = w.reshape(C, cyc * 2, -1)
-    corr = _hunt_corr(cfg, planes, mat)
-    corr = corr.reshape(C, cyc, 2, n_lags, n_seg)
-    power = _hunt_power_scale(cfg) * (corr * corr).sum(
-        axis=(-3, -1))                                 # [C, cyc, lags]
-    metric = _hunt_metric(cfg, power,
-                          w[:, :, 0] * w[:, :, 0]
-                          + w[:, :, 1] * w[:, :, 1])
-
-    flat_m = metric.reshape(C, -1)
-    idx = jnp.argmax(flat_m, axis=-1)
-    flat = power.reshape(C, -1)
-    peak = jnp.take_along_axis(flat, idx[..., None], -1)[..., 0]
-    phase_idx = (idx // n_lags).astype(jnp.int32)
-    lag = (idx % n_lags).astype(jnp.int32)
-    return lag, phase_idx, peak
+# ---------------------------------------------------------------------------
+# Block-parallel core
 
 
-def _extract_packet_planes(cfg: ModemConfig, windows, lag, phase_idx):
-    """Plane-typed packet extraction (integer timing only).
+def _advances(cfg: ModemConfig, exponents) -> np.ndarray:
+    """adv^e for the per-block mixer advance adv, tabulated in float64
+    then rounded to complex64 (exactly-unit to f32 precision)."""
+    w = -2.0 * np.pi * cfg.center / cfg.fs
+    e = np.asarray(exponents, np.float64)
+    return np.exp(1j * w * cfg.frame_size * e).astype(np.complex64)
 
-    ``windows``: [C, cyc, 2, 2*n_sym] f32.  pkt[t] =
-    windows[phase_idx, :, lag - off + t] (identical alignment to
-    ``_extract_packet`` with frac=0): phase select is a one-hot
-    contraction over the cyc axis, then one symbol-domain dynamic
-    slice per channel -- no time-ordered 5x-oversampled intermediate.
-    Returns [C, 2, pkt_window].
+
+def _rotate(pr, pi_, adv):
+    """(pr + j pi) * adv for a host complex64 constant (broadcasting)."""
+    ar = jnp.asarray(np.real(adv))
+    ai = jnp.asarray(np.imag(adv))
+    return pr * ar - pi_ * ai, pr * ai + pi_ * ar
+
+
+def _block_seeds(cfg: ModemConfig, pcm, p0r, p0i, t0r, t0i):
+    """Mixer phase and downmixed FIR halo ENTERING each block, in
+    closed form: phase_b = phase_0 * adv^b, and the halo entering
+    block b is the last ntaps-1 downmixed samples of raw block b-1
+    (block 0 takes the carried ``t0``).  ``pcm``: [B, C, n]; returns
+    planes ph [B, C] and tails [B, C, ntaps-1]."""
+    B = pcm.shape[0]
+    n = cfg.frame_size
+    halo = cfg.ntaps - 1
+    ph_r, ph_i = _rotate(p0r[None], p0i[None],
+                         _advances(cfg, np.arange(B))[:, None])
+    x_t = pcm[:, :, n - halo:].astype(jnp.float32) / cfg.tx_amplitude
+    tl_r, tl_i = downmix_tail(cfg.center, cfg.fs, n, halo, x_t,
+                              ph_r[..., None], ph_i[..., None])
+    tails_r = jnp.concatenate([t0r[None], tl_r[:-1]], 0)
+    tails_i = jnp.concatenate([t0i[None], tl_i[:-1]], 0)
+    return ph_r, ph_i, tails_r, tails_i
+
+
+def _carry_out(cfg: ModemConfig, pcm, p0r, p0i):
+    """Phase and FIR halo after the last block of ``pcm`` [B, C, n]."""
+    B = pcm.shape[0]
+    n = cfg.frame_size
+    halo = cfg.ntaps - 1
+    fr, fi = _rotate(p0r, p0i, _advances(cfg, B))
+    mag = jnp.sqrt(fr * fr + fi * fi)
+    lr, li = _rotate(p0r, p0i, _advances(cfg, B - 1))
+    x_t = pcm[-1, :, n - halo:].astype(jnp.float32) / cfg.tx_amplitude
+    tr, ti = downmix_tail(cfg.center, cfg.fs, n, halo, x_t,
+                          lr[:, None], li[:, None])
+    return fr / mag, fi / mag, tr, ti
+
+
+def _rx_chunk(cfg: ModemConfig, pcm, seeds, *, descramble: bool,
+              gate_only: bool):
+    """The core on one channel chunk.
+
+    ``pcm``: [B, C, n] int16; ``seeds``: (phase_r, phase_i, tail_r,
+    tail_i, decim_prev) entering block 0, channel-leading.  A
+    ``decim_prev`` of None makes block 0 a HALO block: it only supplies
+    the previous-block planes of block 1 and gets no output row.
+    Returns (out [B', C] leaves, decimated planes of the last block).
     """
+    p0r, p0i, t0r, t0i, dprev0 = seeds
+    B, C, n = pcm.shape
+    halo = cfg.ntaps - 1
     cyc = cfg.cycles
-    off = cfg.eq_length // 2
-    pkt_len = cfg.pkt_window
-    W = windows.shape[-1]
-
-    oh = jax.nn.one_hot(phase_idx, cyc, dtype=windows.dtype)
-    sel = jnp.einsum("bc,bcpw->bpw", oh, windows)       # [C, 2, W]
-    rpad = max(0, (cfg.symbols_per_block - 1) + pkt_len - (off + W))
-    sp = jnp.pad(sel, ((0, 0), (0, 0), (off, rpad)))
-    pkt = jax.vmap(
-        lambda s, l: lax.dynamic_slice_in_dim(s, l, pkt_len, axis=-1)
-    )(sp, lag)
-    return pkt
-
-
-def prod_rx_stream_pallas(cfg: ModemConfig, state: ProdRxState,
-                          pcm_frames, *, descramble: bool = True,
-                          block_channels: int = 256,
-                          decode_block_channels: int = 64,
-                          fuse_decode: bool = True,
-                          interpret: bool = False):
-    """Batched stream demod with the Pallas fused kernels.
-
-    ``state``: channel-batched ProdRxState ([C] leading axis);
-    ``pcm_frames``: [n_frames, C, frame_size] int16.  The front-end
-    (int16 -> downmix -> RRC) runs as one VMEM-resident kernel per
-    channel block (ops/frontend_pallas.py); with ``fuse_decode`` the
-    whole post-extraction chain (CFO -> LS fit -> decode -> refine ->
-    descramble) runs as a second fused kernel (ops/decode_pallas.py),
-    leaving only decimation, the bf16 hunt matmul, and the packet
-    extraction in XLA.
-
-    The fused path carries ALL scan state as real/imag float planes
-    (complex64 never appears inside the scan body): Mosaic has no
-    complex dtype, so a complex-typed carry forces plane<->complex
-    conversion glue on every stage boundary -- measurably the largest
-    non-kernel cost of the previous design (ROADMAP.md round-1 perf
-    table).  Conversion to/from the public complex ``ProdRxState``
-    happens once per stream call.
-    """
-    from ..ops.decode_pallas import fused_decode
-    from ..ops.frontend_pallas import fused_frontend, fused_frontend_decim
-
     n_sym = cfg.symbols_per_block
 
-    if not fuse_decode or cfg.frac_timing:
-        # Reference-structured path (complex carry, XLA backend or
-        # fractional-timing extraction).
-        def body_c(st, pcm):
-            fr, fi, ntr, nti, npr, npi = fused_frontend(
-                cfg, pcm, st.phase.real, st.phase.imag,
-                st.fir_tail.real, st.fir_tail.imag,
-                block_channels=_auto_cb(pcm.shape[0], block_channels),
-                interpret=interpret)
-            filtered = lax.complex(fr, fi)
+    ph_r, ph_i, tails_r, tails_i = _block_seeds(cfg, pcm, p0r, p0i,
+                                                t0r, t0i)
+    with jax.named_scope("frontend"):
+        decim = frontend_planes(
+            cfg, pcm.reshape(B * C, n), ph_r.reshape(-1),
+            ph_i.reshape(-1), tails_r.reshape(B * C, halo),
+            tails_i.reshape(B * C, halo)).reshape(B, C, cyc, 2, n_sym)
+    if dprev0 is None:
+        prev, cur = decim[:-1], decim[1:]
+    else:
+        prev = jnp.concatenate([dprev0[None].astype(decim.dtype),
+                                decim[:-1]], 0)
+        cur = decim
+    Bo = cur.shape[0]
+    windows = jnp.concatenate([prev, cur], -1).reshape(
+        Bo * C, cyc, 2, 2 * n_sym)
 
-            if not fuse_decode:
-                decim_cur, out = jax.vmap(
-                    lambda dp, f: prod_rx_backend(cfg, dp, f,
-                                                  descramble=descramble)
-                )(st.decim_prev, filtered)
-            else:
-                decim_cur = filtered.reshape(-1, n_sym, cfg.cycles)
-                decim_cur = jnp.swapaxes(decim_cur, -1, -2)
-                windows = jnp.concatenate(
-                    [st.decim_prev, decim_cur], axis=-1)
-                lag, phase_idx, peak, frac = _hunt(cfg, windows)
-                pkt = jax.vmap(
-                    lambda w, l, p, f: _extract_packet(cfg, w, l, p, f)
-                )(windows, lag, phase_idx, frac)
-                dec = fused_decode(
-                    cfg, pkt.real, pkt.imag, peak,
-                    descramble=descramble,
-                    block_channels=min(decode_block_channels,
-                                       pkt.shape[0]),
-                    interpret=interpret)
-                out = _decode_out(cfg, dec, lag, phase_idx, peak)
+    with jax.named_scope("hunt"):
+        lag, phase_idx, peak = _hunt_planes(cfg, windows)
+    with jax.named_scope("extract"):
+        pkt = _extract_packet_planes(cfg, windows, lag, phase_idx)
+    if gate_only:
+        out = _gate(cfg, pkt, peak)[0]
+    else:
+        with jax.named_scope("decode"):
+            out = jax.vmap(functools.partial(
+                _decode_packet, cfg, descramble=descramble))(
+                    pkt, peak, lag, phase_idx)
+    out = jax.tree.map(lambda x: x.reshape(Bo, C, *x.shape[1:]), out)
+    return out, decim[-1]
 
-            new_state = ProdRxState(
-                phase=lax.complex(npr, npi),
-                fir_tail=lax.complex(ntr, nti),
-                decim_prev=decim_cur)
-            return new_state, out
 
-        return lax.scan(body_c, state, pcm_frames)
+def _pair_bytes(cfg: ModemConfig) -> int:
+    """Device bytes the core holds per (block, channel) pair: the
+    hunt's float32 correlation [cyc*2, n_lags*n_seg] and its square,
+    plus window planes and front-end tiles a few times over."""
+    corr = cfg.cycles * 2 * cfg.symbols_per_block * cfg.corr_segments * 4
+    planes = cfg.cycles * 2 * 2 * cfg.symbols_per_block * 4
+    return 2 * corr + 4 * planes
 
-    # ---- plane-typed fast path (fused hunt+extract+decode kernel,
-    # transposed decim carry [cyc, 2, C, n_sym]) ----
-    from ..ops.decode_pallas import fused_hunt_decode_decim
 
-    def body(st, pcm):
-        pr, pi_, tr, ti, dprev_t = st
-        dcur_t, ntr, nti, npr, npi = fused_frontend_decim(
-            cfg, pcm, pr, pi_, tr, ti,
-            block_channels=_auto_cb(pcm.shape[0], block_channels),
-            transposed=True, interpret=interpret)
+def _max_channels(cfg: ModemConfig, n_blocks: int) -> int:
+    return max(1, WORK_BYTES // (n_blocks * _pair_bytes(cfg)))
 
-        C = pcm.shape[0]
-        dec = fused_hunt_decode_decim(
-            cfg, dprev_t, dcur_t, channels=C, descramble=descramble,
-            block_channels=min(decode_block_channels, C),
-            interpret=interpret)
-        out = _decode_out(cfg, dec, dec["lag"], dec["phase_idx"],
-                          dec["peak"])
-        return (npr, npi, ntr, nti, dcur_t), out
 
-    ddt = (jnp.bfloat16 if cfg.decim_dtype == "bf16"
-           else jnp.float32)
-    st0 = (state.phase.real, state.phase.imag,
-           state.fir_tail.real, state.fir_tail.imag,
-           jnp.transpose(
-               jnp.stack([state.decim_prev.real, state.decim_prev.imag],
-                         axis=0), (2, 0, 1, 3)).astype(ddt))
-    (npr, npi, ntr, nti, dcur_t), outs = lax.scan(body, st0, pcm_frames)
-    final = ProdRxState(
-        phase=lax.complex(npr, npi),
-        fir_tail=lax.complex(ntr, nti),
-        decim_prev=lax.complex(
-            jnp.transpose(dcur_t[:, 0], (1, 0, 2)).astype(jnp.float32),
-            jnp.transpose(dcur_t[:, 1], (1, 0, 2)).astype(jnp.float32)))
-    return final, outs
+def _rx_core(cfg: ModemConfig, pcm, seeds, *, descramble: bool = True,
+             gate_only: bool = False):
+    """``_rx_chunk`` over channel chunks that fit ``WORK_BYTES``.
+
+    Chunks are equal-sized; the last one is clamped to end at C, so it
+    may recompute a few channels of its neighbor (identical inputs,
+    identical outputs).  Outputs are written in place into full-size
+    buffers, so the working set is one chunk's.
+    """
+    fn = functools.partial(_rx_chunk, cfg, descramble=descramble,
+                           gate_only=gate_only)
+    B, C = pcm.shape[0], pcm.shape[1]
+    k = -(-C // _max_channels(cfg, B))
+    if k <= 1:
+        return fn(pcm, seeds)
+    cc = -(-C // k)
+
+    def chunk_spec(x, axis):
+        shape = list(x.shape)
+        shape[axis] = cc
+        return jax.ShapeDtypeStruct(tuple(shape), x.dtype)
+
+    out_s, last_s = jax.eval_shape(
+        fn, chunk_spec(pcm, 1),
+        jax.tree.map(lambda x: chunk_spec(x, 0), seeds))
+    init = (jax.tree.map(lambda s: jnp.zeros((s.shape[0], C)
+                                             + s.shape[2:], s.dtype),
+                         out_s),
+            jnp.zeros((C,) + last_s.shape[1:], last_s.dtype))
+
+    def body(i, acc):
+        s = jnp.minimum(i * cc, C - cc)
+        o, last = fn(lax.dynamic_slice_in_dim(pcm, s, cc, 1),
+                     jax.tree.map(
+                         lambda x: lax.dynamic_slice_in_dim(x, s, cc, 0),
+                         seeds))
+        out = jax.tree.map(
+            lambda a, v: lax.dynamic_update_slice_in_dim(a, v, s, 1),
+            acc[0], o)
+        return out, lax.dynamic_update_slice_in_dim(acc[1], last, s, 0)
+
+    return lax.fori_loop(0, k, body, init)
+
+
+def prod_rx_batch(cfg: ModemConfig, state, pcm_frames, *,
+                  descramble: bool = True):
+    """Block-PARALLEL batched demod: no scan, no sequential carries.
+
+    ``pcm_frames`` [n_frames, C, frame_size] int16 -> (final_state,
+    outs with [n_frames, C, ...] leaves).  Every carried quantity of
+    the production RX is a CLOSED-FORM function of the raw input:
+
+      * the mixer phase advances by a constant unit phasor per block:
+        phase_b = phase_0 * adv^b, with adv^b tabulated in float64;
+      * the FIR halo entering block b is just the last ntaps-1
+        downmixed samples of raw block b-1;
+      * the hunt window's previous-block symbols are another batch
+        element's front-end output.
+
+    All n_frames*C (block, channel) pairs therefore run as one batched
+    front-end matmul, one hunt matmul, one extraction and one batched
+    decode (the reference's per-sample recursions -- running phasor
+    qpsk.c:139-147, FIR delay line fir.c:30-34 -- are linear and
+    time-invariant, hence the closed forms).  The pairs are mapped in
+    channel chunks whose working set fits ``WORK_BYTES``.  Decisions
+    equal ``prod_rx_stream``'s (tests/test_batch_rx.py).
+
+    ``state`` may be a ProdRxState or the plane tuple
+    (``prod_rx_init_planes``); the same type is returned.  Under
+    ``jax.jit(..., donate_argnums=...)`` the state buffers can be
+    donated.
+    """
+    if cfg.frac_timing:
+        raise ValueError(
+            "cfg.frac_timing=True is not supported by the batch "
+            "receiver (integer-timing extraction only); use "
+            "prod_rx_stream or set frac_timing=False")
+    plane_state = not isinstance(state, ProdRxState)
+    planes = state if plane_state else state_to_planes(state)
+    p0r, p0i = planes[0], planes[1]
+    out, dlast = _rx_core(cfg, pcm_frames, planes, descramble=descramble)
+    final = (*_carry_out(cfg, pcm_frames, p0r, p0i), dlast)
+    return (final if plane_state else planes_to_state(final)), out
 
 
 def prod_rx_stream_superstep(cfg: ModemConfig, state, pcm_frames, *,
                              superstep: int = 4,
-                             descramble: bool = True,
-                             block_channels: int = 128,
-                             decode_block_channels: int | None = None,
-                             fuse_frontend: bool = False,
-                             interpret: bool = False):
-    """Streaming demod at BATCH-mode throughput: scan over K-block
-    super-steps.
+                             descramble: bool = True):
+    """Streaming demod in K-block super-steps: a scan over
+    ``prod_rx_batch`` calls.
 
-    The per-block streaming scan (``prod_rx_stream_pallas``) pays one
-    dispatch round of kernel-launch + state plumbing per 1880-sample
-    block -- measured 13% behind batch mode at identical geometry
-    (ROADMAP r3).  Every carried quantity of the production RX is
-    closed-form across a group of K blocks (``prod_rx_batch``), and
-    the splice between consecutive batch calls is exact
-    (tests/test_batch_rx.py test_batch_rx_state_carry_across_calls),
-    so a stream arriving K blocks at a time can run each arrival as
-    ONE batch dispatch: throughput amortizes to batch mode while
-    latency is bounded at K blocks (K * 235 ms of signal at 8 kHz).
+    Every carried quantity is closed-form across a group of K blocks,
+    and the splice between consecutive batch calls is exact, so a
+    stream arriving K blocks at a time runs each arrival as ONE batch
+    dispatch; latency is bounded at K blocks (K * 235 ms of signal at
+    8 kHz).  K=1 is the per-block streaming receiver.
 
     ``state`` may be a ProdRxState or the plane tuple
     (prod_rx_init_planes); the same type is returned.
@@ -670,14 +761,10 @@ def prod_rx_stream_superstep(cfg: ModemConfig, state, pcm_frames, *,
     groups = pcm_frames.reshape(B // superstep, superstep,
                                 *pcm_frames.shape[1:])
     plane_state = not isinstance(state, ProdRxState)
-    st0 = state if plane_state else state_to_planes(cfg, state)
+    st0 = state if plane_state else state_to_planes(state)
 
     def body(st, grp):
-        return prod_rx_batch(
-            cfg, st, grp, descramble=descramble,
-            block_channels=block_channels,
-            decode_block_channels=decode_block_channels,
-            fuse_frontend=fuse_frontend, interpret=interpret)
+        return prod_rx_batch(cfg, st, grp, descramble=descramble)
 
     st_f, outs = lax.scan(body, st0, groups)
     outs = jax.tree.map(
@@ -685,295 +772,8 @@ def prod_rx_stream_superstep(cfg: ModemConfig, state, pcm_frames, *,
     return (st_f if plane_state else planes_to_state(st_f)), outs
 
 
-def prod_rx_batch(cfg: ModemConfig, state: ProdRxState, pcm_frames, *,
-                  descramble: bool = True, block_channels: int = 128,
-                  decode_block_channels: int | None = None,
-                  segs_per_chunk: int = 2,
-                  fuse_extract: bool = True, fuse_hunt: bool = True,
-                  fuse_frontend: bool = False,
-                  interpret: bool = False):
-    """Block-PARALLEL batched demod: no scan, no sequential carries.
-
-    Same contract as ``prod_rx_stream_pallas`` (``pcm_frames``
-    [n_frames, C, frame_size] int16 -> (final_state, outs with
-    [n_frames, C, ...] leaves)) but exploits that every carried
-    quantity of the production RX is a CLOSED-FORM function of the raw
-    input:
-
-      * the mixer phase advances by a constant unit phasor per block:
-        phase_b = phase_0 * adv^b, with adv^b tabulated in float64;
-      * the FIR halo entering block b is just the last ntaps-1
-        downmixed samples of raw block b-1 (a handful of elementwise
-        ops on the raw PCM tail);
-      * the hunt window's previous-block symbols are another batch
-        element's front-end output.
-
-    All n_frames*C (block, channel) pairs therefore run as ONE batched
-    front-end kernel + ONE hunt matmul + ONE extraction + ONE decode
-    kernel -- a lax.scan would serialize n_frames dispatch rounds for
-    carries that were never actually sequential.  (The reference's
-    per-sample recursions -- running phasor qpsk.c:139-147, FIR delay
-    line fir.c:30-34 -- are the source of the apparent dependency; both
-    are linear and time-invariant, hence the closed forms.)
-
-    This is the throughput path (bench.py).  For streaming arrival
-    (one block at a time) use ``prod_rx_stream_pallas``; results agree
-    to decision level (tests/test_batch_rx.py).
-    """
-    from ..ops.decode_pallas import fused_decode
-    from ..ops.frontend_pallas import fused_frontend_decim
-
-    if cfg.frac_timing and (fuse_hunt or fuse_extract or fuse_frontend):
-        # The batch hunt/extract paths run INTEGER timing only
-        # (_hunt_planes / the in-kernel barrel-shift extraction); a
-        # frac_timing config through them would silently lose the
-        # feature and diverge from the XLA oracle (VERDICT r4 weak #4).
-        # The streaming path falls back automatically
-        # (prod_rx_stream_pallas); batch has no frac-capable
-        # formulation, so fail loudly.
-        raise ValueError(
-            "cfg.frac_timing=True is not supported by the fused batch "
-            "paths (integer-timing extraction only); use "
-            "prod_rx_stream_pallas (falls back to the fractional-"
-            "capable scan body) or set frac_timing=False")
-    B, C = pcm_frames.shape[0], pcm_frames.shape[1]
-    n = cfg.frame_size
-    halo = cfg.ntaps - 1
-    n_sym = cfg.symbols_per_block
-    inv_scale = 1.0 / cfg.tx_amplitude
-    if decode_block_channels is None:
-        # measured sweet spots differ per kernel: the ONE-kernel fused
-        # RX runs fastest at cb=128 (6.38 vs 6.13 GS/s at cb=64;
-        # cb=32 5.37, cb=256 5.47), while the standalone decode
-        # kernel's cb=128 is a 20x Mosaic pathology (ROADMAP r3) --
-        # keep 64 there.  Channel counts the sweet spot does not
-        # divide fall back to the largest divisor (ADVICE r4: C=192
-        # must not hit the kernels' divisibility check).
-        decode_block_channels = _auto_cb(
-            C, 128 if fuse_frontend else 64)
-
-    # ``state`` may be the public complex ProdRxState or the plane
-    # tuple (prod_rx_init_planes); with planes the output state stays
-    # in plane layout too -- carrying planes across dispatches skips
-    # the GB-scale complex<->transposed-plane conversions per call.
-    plane_state = not isinstance(state, ProdRxState)
-    if plane_state:
-        if not (fuse_extract and fuse_hunt):
-            # public-API precondition: must survive python -O
-            raise TypeError(
-                "plane-typed state (prod_rx_init_planes) requires the "
-                "fully fused path (fuse_extract=True, fuse_hunt=True); "
-                "pass a ProdRxState for the unfused paths")
-        p0r, p0i, tail0_r, tail0_i, dprev0_t_in = state
-    else:
-        p0r, p0i = state.phase.real, state.phase.imag
-        tail0_r = state.fir_tail.real
-        tail0_i = state.fir_tail.imag
-        dprev0_t_in = None
-
-    if fuse_frontend:
-        # ---- ONE-kernel path: front-end + hunt + decode fused, decim
-        # ring carried in VMEM across the time-block grid walk
-        # (ops/fused_rx.py).  No decim-plane HBM traffic at all.
-        from ..ops.fused_rx import fused_rx_block
-        if not (fuse_extract and fuse_hunt):
-            raise ValueError(
-                "fuse_frontend requires fuse_extract and fuse_hunt")
-        if plane_state:
-            dprev0_t = dprev0_t_in
-        else:
-            dprev0_t = jnp.transpose(
-                jnp.stack([state.decim_prev.real, state.decim_prev.imag],
-                          axis=0), (2, 0, 1, 3))
-        dec, dlast, (fr, fi, ftr, fti) = fused_rx_block(
-            cfg, pcm_frames, p0r, p0i, tail0_r, tail0_i, dprev0_t,
-            descramble=descramble,
-            block_channels=min(decode_block_channels, C),
-            segs_per_chunk=segs_per_chunk, interpret=interpret)
-        out = _decode_out(cfg, dec, dec["lag"], dec["phase_idx"],
-                          dec["peak"])
-        out = jax.tree.map(lambda x: x.reshape(B, C, *x.shape[1:]), out)
-        if plane_state:
-            return (fr, fi, ftr, fti, dlast), out
-        return ProdRxState(
-            phase=lax.complex(fr, fi),
-            fir_tail=lax.complex(ftr, fti),
-            decim_prev=lax.complex(
-                jnp.transpose(dlast[:, 0], (1, 0, 2)).astype(
-                    jnp.float32),
-                jnp.transpose(dlast[:, 1], (1, 0, 2)).astype(
-                    jnp.float32))), out
-
-    table = mixer_table(-cfg.center, cfg.fs, n)
-    # adv^b for b in [0, B], float64 phase -> exactly-unit complex64
-    w = -2.0 * np.pi * cfg.center / cfg.fs
-    advs = np.exp(1j * w * n * np.arange(B + 1)).astype(np.complex64)
-
-    # phases[b] = phase_0 * adv^b  (planes [B, C])
-    ar = jnp.asarray(advs.real[:B, None])
-    ai = jnp.asarray(advs.imag[:B, None])
-    ph_r = p0r[None, :] * ar - p0i[None, :] * ai
-    ph_i = p0r[None, :] * ai + p0i[None, :] * ar
-
-    # tails[b] = last `halo` downmixed samples of raw block b-1
-    # (tails[0] = carried state), in scaled units.
-    x_t = pcm_frames[:, :, n - halo:].astype(jnp.float32) * inv_scale
-    tl_r, tl_i = downmix_tail(cfg.center, cfg.fs, n, halo, x_t,
-                              ph_r[..., None], ph_i[..., None])
-    tails_r = jnp.concatenate([tail0_r[None], tl_r[:-1]], 0)
-    tails_i = jnp.concatenate([tail0_i[None], tl_i[:-1]], 0)
-
-    # ---- one batched front-end over all B*C (block, channel) pairs ----
-    N = B * C
-
-    if fuse_extract and fuse_hunt:
-        # Fully fused post-frontend path: ONE kernel does hunt +
-        # extract + decode (ops/decode_pallas.fused_hunt_decode_decim)
-        # on TRANSPOSED decim planes [cyc, 2, N+C, n_sym] -- the
-        # channel-major layout's (2, W) VMEM tiles sublane-pad 4x, the
-        # XLA hunt round-trips its [N, cyc*2, lags*segs] corr
-        # intermediate through HBM (the dominant hunt cost), and the
-        # kernel reads prev/cur decim blocks directly (rows k and k+C
-        # of one array) instead of a materialized padded windows array.
-        from ..ops.decode_pallas import fused_hunt_decode_decim
-        dcur_t, _, _, _, _ = fused_frontend_decim(
-            cfg, pcm_frames.reshape(N, n),
-            ph_r.reshape(N), ph_i.reshape(N),
-            tails_r.reshape(N, halo), tails_i.reshape(N, halo),
-            block_channels=_auto_cb(N, block_channels),
-            transposed=True,
-            interpret=interpret)
-
-        if plane_state:
-            dprev0_t = dprev0_t_in.astype(dcur_t.dtype)
-        else:
-            dprev0_t = jnp.stack(
-                [state.decim_prev.real, state.decim_prev.imag],
-                axis=0)                                 # [2, C, cyc, .]
-            dprev0_t = jnp.transpose(dprev0_t, (2, 0, 1, 3)).astype(
-                dcur_t.dtype)
-
-        dec = fused_hunt_decode_decim(
-            cfg, dprev0_t, dcur_t, channels=C, descramble=descramble,
-            block_channels=min(decode_block_channels, N, C),
-            segs_per_chunk=segs_per_chunk,
-            interpret=interpret)
-        lag, phase_idx = dec["lag"], dec["phase_idx"]
-        peak = dec["peak"]
-        out = _decode_out(cfg, dec, lag, phase_idx, peak)
-        out = jax.tree.map(lambda x: x.reshape(B, C, *x.shape[1:]), out)
-
-        # ---- final state (closed form) ----
-        fr = (p0r * np.float32(advs.real[B])
-              - p0i * np.float32(advs.imag[B]))
-        fi = (p0r * np.float32(advs.imag[B])
-              + p0i * np.float32(advs.real[B]))
-        mag = jnp.sqrt(fr * fr + fi * fi)
-        dlast = dcur_t[:, :, (B - 1) * C:]              # [cyc, 2, C, .]
-        if plane_state:
-            return (fr / mag, fi / mag, tl_r[-1], tl_i[-1], dlast), out
-        return ProdRxState(
-            phase=lax.complex(fr / mag, fi / mag),
-            fir_tail=lax.complex(tl_r[-1], tl_i[-1]),
-            decim_prev=lax.complex(
-                jnp.transpose(dlast[:, 0], (1, 0, 2)).astype(
-                    jnp.float32),
-                jnp.transpose(dlast[:, 1], (1, 0, 2)).astype(
-                    jnp.float32))), out
-
-    dcur, _, _, _, _ = fused_frontend_decim(
-        cfg, pcm_frames.reshape(N, n),
-        ph_r.reshape(N), ph_i.reshape(N),
-        tails_r.reshape(N, halo), tails_i.reshape(N, halo),
-        block_channels=_auto_cb(N, block_channels), interpret=interpret)
-    decim = dcur.reshape(B, C, cfg.cycles, 2, n_sym)
-
-    # hunt windows: [prev | cur] along the symbol axis
-    dprev0 = jnp.stack([state.decim_prev.real, state.decim_prev.imag],
-                       axis=1)                           # [C, 2, ...]
-    dprev0 = jnp.swapaxes(dprev0, 1, 2)[None]            # [1, C, cyc, 2, .]
-    dprev = jnp.concatenate([dprev0, decim[:-1]], axis=0)
-
-    if fuse_extract:
-        # One padded windows array serves BOTH the hunt (reads at a
-        # column offset) and the in-kernel DMA extraction (indexes
-        # packets at `lag` directly): [off | prev | cur | rpad].
-        from ..ops.decode_pallas import fused_decode_extract
-        off = cfg.eq_length // 2
-        need = (n_sym - 1) + cfg.pkt_window
-        wp = -(-max(need, off + 2 * n_sym) // 128) * 128
-        zl = jnp.zeros((B, C, cfg.cycles, 2, off), jnp.float32)
-        zr_ = jnp.zeros((B, C, cfg.cycles, 2, wp - off - 2 * n_sym),
-                        jnp.float32)
-        windows = jnp.concatenate([zl, dprev, decim, zr_], -1).reshape(
-            N, cfg.cycles, 2, wp)
-        lag, phase_idx, peak = _hunt_planes(cfg, windows,
-                                            col_offset=off)
-        dec = fused_decode_extract(
-            cfg, windows, lag, phase_idx, peak, descramble=descramble,
-            block_channels=min(decode_block_channels, N),
-            interpret=interpret)
-    else:
-        windows = jnp.concatenate([dprev, decim], axis=-1).reshape(
-            N, cfg.cycles, 2, 2 * n_sym)
-        lag, phase_idx, peak = _hunt_planes(cfg, windows)
-        pkt = _extract_packet_planes(cfg, windows, lag, phase_idx)
-        dec = fused_decode(cfg, pkt[:, 0], pkt[:, 1], peak,
-                           descramble=descramble,
-                           block_channels=min(decode_block_channels, N),
-                           interpret=interpret)
-    out = _decode_out(cfg, dec, lag, phase_idx, peak)
-    out = jax.tree.map(lambda x: x.reshape(B, C, *x.shape[1:]), out)
-
-    # ---- final state (closed form) ----
-    fr = p0r * np.float32(advs.real[B]) - p0i * np.float32(advs.imag[B])
-    fi = p0r * np.float32(advs.imag[B]) + p0i * np.float32(advs.real[B])
-    mag = jnp.sqrt(fr * fr + fi * fi)
-    final = ProdRxState(
-        phase=lax.complex(fr / mag, fi / mag),
-        fir_tail=lax.complex(tl_r[-1], tl_i[-1]),
-        decim_prev=lax.complex(decim[-1, :, :, 0, :],
-                               decim[-1, :, :, 1, :]))
-    return final, out
-
-
-def _auto_cb(C: int, cap: int) -> int:
-    """Largest channel-block size <= cap that divides C (the Pallas
-    kernels require C % cb == 0)."""
-    cb = min(cap, C)
-    while C % cb:
-        cb -= 1
-    return cb
-
-
-def dibits_to_bits(dibits):
-    """u8 dibits {0..3} -> the interleaved ProdRxOut.bits layout
-    (single definition shared with the gated pipeline -- code-review
-    r5 finding #2)."""
-    d = dibits.astype(jnp.uint8)
-    return jnp.stack([d & 1, d >> 1], axis=-1).reshape(
-        *d.shape[:-1], -1).astype(jnp.uint8)
-
-
-def _decode_out(cfg: ModemConfig, dec, lag, phase_idx, peak) -> ProdRxOut:
-    """Assemble ProdRxOut from the fused-decode kernel's stat dict."""
-    valid = dec["gated"] & (dec["matches"] > cfg.match_threshold)
-    bits = dibits_to_bits(dec["dibits"])
-    return ProdRxOut(
-        valid=valid, bits=bits, matches=dec["matches"], lag=lag,
-        timing_phase=phase_idx, peak=peak, energy=dec["energy"],
-        cfo_hz=dec["cfo_hz"], eq_error=dec["eq_error"],
-    )
-
-
 def make_prod_rx_fn(cfg: ModemConfig, *, descramble: bool = True,
-                    batched: bool = False, pallas: bool = False):
-    if pallas:
-        def fn(state, pcm_frames):
-            return prod_rx_stream_pallas(cfg, state, pcm_frames,
-                                         descramble=descramble)
-        return jax.jit(fn)
-
+                    batched: bool = False):
     def fn(state, pcm_frames):
         return prod_rx_stream(cfg, state, pcm_frames, descramble=descramble)
 

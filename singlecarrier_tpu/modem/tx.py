@@ -1,6 +1,6 @@
 """QPSK modulator / TX chain.
 
-TPU-native port of the reference TX path (reference: src/qpsk.c:251-342):
+JAX port of the reference TX path (reference: src/qpsk.c:251-342):
 Gray-mapped QPSK symbols -> x5 zero-stuff upsample -> RRC pulse-shaping
 FIR -> upmix to the 1100 Hz carrier -> real part -> int16 quantize
 (preamble at half amplitude).  Pure-functional: all reference statics
@@ -23,7 +23,6 @@ import numpy as np
 from ..config import ModemConfig
 from ..constants import PREAMBLE_TABLE, rrc_taps
 from ..dsp.fir import fir_block, fir_init_state
-from ..utils.compat import czeros
 from ..dsp.mixer import mix_block, mixer_init_phase
 
 
@@ -69,7 +68,7 @@ def tx_frame(cfg: ModemConfig, state: TxState, symbols, amplitude):
     n_sym = symbols.shape[-1]
     n = n_sym * cfg.cycles
     # x5 zero-stuff (qpsk.c:285-291)
-    sig = czeros((*symbols.shape[:-1], n))
+    sig = jnp.zeros((*symbols.shape[:-1], n), jnp.complex64)
     sig = sig.at[..., ::cfg.cycles].set(symbols)
     # RRC pulse shaping (qpsk.c:296)
     taps = rrc_taps(cfg.alpha, cfg.ntaps)
@@ -91,7 +90,7 @@ def _flushed_gap(cfg: ModemConfig, state: TxState, batch_shape):
     truncated).  Production TX filters the gap so the full pulse energy
     lands on air; the gap stays silent except its first ~48 samples.
     """
-    zeros = czeros((*batch_shape, cfg.inter_packet_gap))
+    zeros = jnp.zeros((*batch_shape, cfg.inter_packet_gap), jnp.complex64)
     taps = rrc_taps(cfg.alpha, cfg.ntaps)
     sig, fir_tail = fir_block(taps, cfg.fir_gain, state.fir_tail, zeros)
     sig, phase = mix_block(sig, state.phase, cfg.center, cfg.fs)
@@ -111,8 +110,7 @@ def tx_packet(cfg: ModemConfig, state: TxState, bits, *, scramble_offset=None,
     (the reference intended but never wired TX scrambling -- qpsk.c:386,
     397; enabling it restores TX/RX symmetry, SURVEY.md quirk #3).
     """
-    from ..utils.compat import device_complex
-    pre = device_complex(PREAMBLE_TABLE)
+    pre = jnp.asarray(PREAMBLE_TABLE)
     pre = jnp.broadcast_to(pre, (*bits.shape[:-2], cfg.preamble_length))
     pcm_pre, state = tx_frame(cfg, state, pre, cfg.preamble_amplitude)
 

@@ -1,9 +1,7 @@
 from .mesh import make_mesh, device_count
-from .sharded_rx import (make_channel_sharded_rx,
-                         make_fused_grid_sharded_rx,
-                         make_fused_sharded_rx,
-                         metrics_summary, shard_channel_state,
-                         shard_plane_state)
+from .sharded_rx import (make_channel_sharded_rx, make_grid_batch_rx,
+                         make_sharded_batch_rx, metrics_summary,
+                         shard_channel_state, shard_plane_state)
 from .timeshard import (time_sharded_rx, make_time_sharded_rx,
                         grid_sharded_rx, make_grid_sharded_rx)
 
@@ -11,8 +9,8 @@ __all__ = [
     "make_mesh",
     "device_count",
     "make_channel_sharded_rx",
-    "make_fused_grid_sharded_rx",
-    "make_fused_sharded_rx",
+    "make_grid_batch_rx",
+    "make_sharded_batch_rx",
     "metrics_summary",
     "shard_channel_state",
     "shard_plane_state",

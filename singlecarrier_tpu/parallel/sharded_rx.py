@@ -12,13 +12,14 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax import shard_map
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import ModemConfig
-from ..modem.rx_production import (ProdRxState, _auto_cb,
-                                   prod_rx_batch, prod_rx_init,
-                                   prod_rx_stream)
+from ..dsp.mixer import downmix_tail
+from ..modem.rx_production import (ProdRxState, _advances, _rx_core,
+                                   prod_rx_batch, prod_rx_stream)
 
 
 def shard_channel_state(state: ProdRxState, mesh: Mesh) -> ProdRxState:
@@ -49,12 +50,10 @@ def make_channel_sharded_rx(cfg: ModemConfig, mesh: Mesh, *,
     return jax.jit(vfn, in_shardings=ch, out_shardings=ch)
 
 
-# Plane-tuple sharding specs (prod_rx_init_planes layout): phase_r [C],
-# phase_i [C], fir_tail_r [C, halo], fir_tail_i [C, halo],
-# decim_prev_t [cyc, 2, C, n_sym] -- the channel axis is leading on the
-# first four leaves and THIRD on the transposed decim planes.
 def _plane_specs(axis: str):
-    return (P(axis), P(axis), P(axis), P(axis), P(None, None, axis))
+    """Plane-tuple sharding specs (prod_rx_init_planes layout): every
+    leaf is channel-leading."""
+    return (P(axis),) * 5
 
 
 def shard_plane_state(planes, mesh: Mesh, *, axis: str = "ch"):
@@ -65,45 +64,27 @@ def shard_plane_state(planes, mesh: Mesh, *, axis: str = "ch"):
         for x, spec in zip(planes, _plane_specs(axis)))
 
 
-def make_fused_sharded_rx(cfg: ModemConfig, mesh: Mesh, *,
-                          descramble: bool = True, axis: str = "ch",
-                          fuse_frontend: bool = True,
-                          block_channels: int = 128,
-                          decode_block_channels: int | None = None,
-                          interpret: bool = False):
-    """The HEADLINE fused-kernel RX under a channel-axis shard_map.
+def make_sharded_batch_rx(cfg: ModemConfig, mesh: Mesh, *,
+                          descramble: bool = True, axis: str = "ch"):
+    """The block-parallel batch core under a channel-axis shard_map.
 
-    Wraps ``prod_rx_batch`` (``fuse_frontend=True`` = the ONE-kernel
-    fused RX, ops/fused_rx.py; ``False`` = the two-kernel pipeline) so
-    each device runs its own Pallas dispatch over its channel shard --
-    the deployable pod program for the 1M-channel target, not the XLA
-    scan that ``make_channel_sharded_rx`` vmaps.  Channels are fully
-    independent (the per-channel statics the axis shards:
+    Each device runs ``prod_rx_batch`` over its channel shard -- the
+    deployable multi-card program for the 1M-channel target.  Channels
+    are fully independent (the per-channel statics the axis shards:
     reference src/qpsk.c:34-53), so the sharded program contains ZERO
-    collectives: shard_map splits the operands, every device executes
-    the identical fused kernel on C/n_dev channels, and outputs stay
-    channel-sharded for the caller's metric psums.
+    collectives and outputs stay channel-sharded for the caller's
+    metric reductions.
 
     Returns ``jit(fn)(planes, pcm) -> (planes, ProdRxOut)`` where
     ``planes`` is the plane-tuple state (``prod_rx_init_planes``,
     channel axis sharded -- use ``shard_plane_state``) and ``pcm`` is
     [n_blocks, C, frame_size] int16 with C divisible by the mesh's
-    ``axis`` size.  Per-device-Pallas equality vs the single-device
-    fused path is pinned on the 8-virtual-device CPU mesh in
-    tests/test_sharding.py (interpret mode).
+    ``axis`` size.  The state is donated.
     """
     n_dev = mesh.shape[axis]
 
     def shard_fn(planes, pcm):
-        # pcm: [B, C/n_dev, frame_size] local shard
-        cb = (None if decode_block_channels is None
-              else min(decode_block_channels, pcm.shape[1]))
-        return prod_rx_batch(
-            cfg, planes, pcm, descramble=descramble,
-            block_channels=_auto_cb(pcm.shape[0] * pcm.shape[1],
-                                    block_channels),
-            decode_block_channels=cb,
-            fuse_frontend=fuse_frontend, interpret=interpret)
+        return prod_rx_batch(cfg, planes, pcm, descramble=descramble)
 
     specs = _plane_specs(axis)
     fn = shard_map(
@@ -120,114 +101,76 @@ def make_fused_sharded_rx(cfg: ModemConfig, mesh: Mesh, *,
                 f"'{axis}' size ({n_dev})")
         return fn(planes, pcm)
 
-    return jax.jit(wrapped)
+    return jax.jit(wrapped, donate_argnums=(0,))
 
 
-def make_fused_grid_sharded_rx(cfg: ModemConfig, mesh: Mesh, *,
-                               descramble: bool = True,
-                               fuse_frontend: bool = True,
-                               decode_block_channels: int | None = None,
-                               interpret: bool = False):
-    """The fused-kernel RX under a 2D [ch x time] shard_map (one-shot).
+def make_grid_batch_rx(cfg: ModemConfig, mesh: Mesh, *,
+                       descramble: bool = True):
+    """The batch core under a 2D [ch x time] shard_map (one-shot).
 
     Channels shard as pure DP; the TIME axis shards one stream's
     blocks with a ONE-BLOCK overlap-save halo: each shard ppermutes
     its last raw PCM block (plus the ntaps-1 samples before it) to its
-    right neighbor, PREPENDS it to its local blocks, and seeds the
-    prepended walk with closed-form carries --
+    right neighbor and PREPENDS it to its local blocks as a halo block,
+    seeded with closed-form carries --
 
       * mixer phase entering the halo slot = adv^(g-1) from the GLOBAL
         block index (no communication; for shard 0 that is adv^-1, so
         the first real block lands on adv^0 = the fresh-stream phase);
       * FIR tail entering the halo slot = the downmixed last ntaps-1
-        samples of global block g-1 (part of the ppermuted halo);
-      * decim_prev = zeros -- it only affects the halo block's OWN
-        hunt window, whose outputs are dropped.
+        samples of global block g-1 (part of the ppermuted halo).
 
-    The halo block's decimated planes then ride the fused kernel's
-    VMEM ring into the first real block's hunt window, exactly as in
-    the unsharded walk: one redundant block of compute per shard buys
-    seam-free results.  Outputs for the B_local real blocks are
-    returned ([n_blocks, C, ...] leaves, both axes sharded).
-    Decision-level seam equality vs the single-device fused path is
-    pinned in tests/test_sharding.py (the carried FIR tail is rebuilt
-    in f32 where the in-kernel ring holds it in the z-scratch dtype,
-    so float stats may differ in ulps at the seam -- the same
-    tolerance contract as the dispatch-boundary state-carry test).
+    The halo block's decimated planes are the first real block's
+    previous-block planes, exactly as in the unsharded core; the halo
+    block itself gets no output row.  One redundant block of front-end
+    per shard buys seam-free results ([n_blocks, C, ...] leaves, both
+    axes sharded).  Decisions equal the single-device core
+    (tests/test_sharding.py).
 
     ``pcm``: [n_blocks, n_channels, frame_size] int16, n_blocks
     divisible by mesh['time'] (and >= 2 per shard), n_channels by
     mesh['ch'].
     """
-    import numpy as np
-
-    from ..dsp.mixer import mixer_table
-
     n_t = mesh.shape["time"]
     n_c = mesh.shape["ch"]
     n = cfg.frame_size
     halo = cfg.ntaps - 1
-    inv_scale = 1.0 / cfg.tx_amplitude
-    w_ = -2.0 * np.pi * cfg.center / cfg.fs
-    table = mixer_table(-cfg.center, cfg.fs, n)
-    tr_t = jnp.asarray(table.real[n - halo:])
-    ti_t = jnp.asarray(table.imag[n - halo:])
 
     def shard_fn(pcm_local):
         # pcm_local: [B_loc, C_loc, n]
         B_loc, C_loc = pcm_local.shape[0], pcm_local.shape[1]
         t_idx = jax.lax.axis_index("time")
-        my_first = t_idx * B_loc                  # global block index
         is_first = t_idx == 0
 
         # halo to the right neighbor: my last block + the ntaps-1 raw
         # samples preceding it (from my second-to-last block)
-        halo_blk = pcm_local[-1]                          # [C_loc, n]
-        halo_pre = pcm_local[-2, :, n - halo:]            # [C_loc, halo]
         perm = [(i, i + 1) for i in range(n_t - 1)]
-        in_blk = jax.lax.ppermute(halo_blk, "time", perm)
-        in_pre = jax.lax.ppermute(halo_pre, "time", perm)
+        in_blk = jax.lax.ppermute(pcm_local[-1], "time", perm)
+        in_pre = jax.lax.ppermute(pcm_local[-2, :, n - halo:], "time",
+                                  perm)
         in_blk = jnp.where(is_first, jnp.zeros_like(in_blk), in_blk)
         in_pre = jnp.where(is_first, jnp.zeros_like(in_pre), in_pre)
 
-        # closed-form carries at the halo slot g = my_first - 1
-        # (shard 0: adv^-1 so block 0 gets adv^0).  The seed phasors
-        # come from a HOST float64 table indexed by the shard: an f32
-        # angle*g product drifts ~1e-7*g rad from prod_rx_batch's
-        # float64 adv tabulation, degrading seam equality with stream
-        # length (code-review r5).  B_loc and n_t are static, so the
-        # tables are exact at trace time.
-        import numpy as _np
-        g_tab = _np.arange(n_t, dtype=_np.float64) * B_loc - 1.0
-        ph1 = _np.exp(1j * w_ * n * g_tab).astype(_np.complex64)
-        ph2 = _np.exp(1j * w_ * n * (g_tab - 1.0)).astype(_np.complex64)
-        p_r = jnp.asarray(ph1.real)[t_idx] * jnp.ones((C_loc,),
-                                                      jnp.float32)
-        p_i = jnp.asarray(ph1.imag)[t_idx] * jnp.ones((C_loc,),
-                                                      jnp.float32)
+        # Closed-form carries at the halo slot g = t_idx*B_loc - 1,
+        # from a host float64 table indexed by the shard (an f32
+        # angle*g product would drift from the core's float64
+        # tabulation with stream length).
+        g = np.arange(n_t) * B_loc - 1.0
+        ph1 = _advances(cfg, g)
+        ph2 = _advances(cfg, g - 1.0)
+        ones = jnp.ones((C_loc,), jnp.float32)
+        p_r = jnp.asarray(ph1.real)[t_idx] * ones
+        p_i = jnp.asarray(ph1.imag)[t_idx] * ones
         # FIR tail entering g = downmixed tail of block g-1 at
         # phase(g-1); zero for shard 0 (fresh) -- in_pre is zeroed
-        qr = jnp.asarray(ph2.real)[t_idx]
-        qi = jnp.asarray(ph2.imag)[t_idx]
-        x_t = in_pre.astype(jnp.float32) * inv_scale
-        tl_r = x_t * (qr * tr_t - qi * ti_t)
-        tl_i = x_t * (qr * ti_t + qi * tr_t)
-
-        ddt = (jnp.bfloat16 if cfg.decim_dtype == "bf16"
-               else jnp.float32)
-        planes = (p_r, p_i, tl_r, tl_i,
-                  jnp.zeros((cfg.cycles, 2, C_loc,
-                             cfg.symbols_per_block), ddt))
+        x_t = in_pre.astype(jnp.float32) / cfg.tx_amplitude
+        tl_r, tl_i = downmix_tail(cfg.center, cfg.fs, n, halo, x_t,
+                                  jnp.asarray(ph2.real)[t_idx],
+                                  jnp.asarray(ph2.imag)[t_idx])
         pcm_ext = jnp.concatenate([in_blk[None], pcm_local], axis=0)
-        cb = (None if decode_block_channels is None
-              else min(decode_block_channels, C_loc))
-        _, out = prod_rx_batch(
-            cfg, planes, pcm_ext, descramble=descramble,
-            block_channels=_auto_cb((B_loc + 1) * C_loc, 128),
-            decode_block_channels=cb,
-            fuse_frontend=fuse_frontend, interpret=interpret)
-        # drop the halo block's outputs
-        return jax.tree.map(lambda x: x[1:], out)
+        out, _ = _rx_core(cfg, pcm_ext, (p_r, p_i, tl_r, tl_i, None),
+                          descramble=descramble)
+        return out
 
     fn = shard_map(
         shard_fn, mesh=mesh,
@@ -252,7 +195,7 @@ def make_fused_grid_sharded_rx(cfg: ModemConfig, mesh: Mesh, *,
 
 def metrics_summary(out):
     """Cross-channel metric reduction (detection rate, mean CFO, mean
-    eq error) -- an all-reduce XLA lowers to psum over ICI."""
+    eq error) -- an all-reduce XLA lowers to a psum across the mesh."""
     detected = out.valid.sum()
     return {
         "packets_detected": detected,

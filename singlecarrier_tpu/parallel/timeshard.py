@@ -12,7 +12,7 @@ section 2 SP row) is:
 
 So each shard needs a left halo of one raw PCM block plus 48 samples
 (1928 samples total): it receives the halo from its left neighbor via
-``ppermute`` (one ICI hop), locally downmixes+filters it to rebuild
+``ppermute`` (one interconnect hop), locally downmixes+filters it to rebuild
 ``decim_prev``/``fir_tail``, and then scans its own blocks.  This is
 the overlap-save boundary design: redundant compute of one block per
 shard buys exact seam-free results (verified by the seam tests:
@@ -139,7 +139,7 @@ def grid_sharded_rx(cfg: ModemConfig, pcm, mesh: Mesh, *,
     ``pcm``: [n_channels, n_blocks, frame_size]; n_channels divisible
     by mesh.shape['ch'], n_blocks by mesh.shape['time'].  Combines the
     DP channel axis with the SP time axis: halos ride ``ppermute`` over
-    the 'time' mesh dimension only (one ICI hop), channels never
+    the 'time' mesh dimension only (one interconnect hop), channels never
     communicate.
     """
     n_ch_dev = mesh.shape["ch"]

@@ -9,7 +9,7 @@ a pure replay problem: restore the last good state, re-feed the blocks
 since, continue.  This module supplies the three missing pieces:
 
  * ``health_check`` -- a jitted device-side scan of the state pytree
-   for non-finite values (the TPU-native analog of a sanitizer: a
+   for non-finite values (the device-side analog of a sanitizer: a
    diverged Kalman/LS state or an HBM corruption shows up as inf/nan
    in the carried state long before it shows up in the bits).
  * ``Heartbeat`` / ``monitor_heartbeats`` -- file-based liveness for

@@ -11,10 +11,14 @@ from __future__ import annotations
 import contextlib
 import time
 from dataclasses import dataclass, field
+from pathlib import Path
+
+# Default trace directory: inside the checkout (listed in .gitignore).
+TRACE_DIR = str(Path(__file__).resolve().parents[2] / "traces")
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/sc_tpu_trace"):
+def trace(log_dir: str = TRACE_DIR):
     """Capture a device trace viewable in TensorBoard/Perfetto."""
     import jax
     jax.profiler.start_trace(log_dir)

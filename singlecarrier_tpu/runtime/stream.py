@@ -1,7 +1,7 @@
 """Streaming block driver.
 
 The reference's driver is a blocking fread/demod/fwrite loop over
-1880-sample chunks (reference: src/qpsk.c:436-458).  The TPU-native
+1880-sample chunks (reference: src/qpsk.c:436-458).  This
 driver is state-in/state-out over [channels, frame_size] blocks: the
 host (or the native IO engine, native/scio.cc) feeds int16 blocks, the
 jitted batched RX consumes them, and the per-channel state pytree rides

@@ -1,9 +1,9 @@
-"""DVB additive bit scrambler, TPU-native.
+"""DVB additive bit scrambler, vectorized.
 
 The reference scrambles two bits per call through a sequential 15-bit
 LFSR (reference: src/scramble.c:57-68).  Because the LFSR is autonomous
 (feedback never touches the data), scrambling == XOR with a fixed
-periodic keystream, so on TPU the whole operation is a vectorized XOR
+periodic keystream, so the whole operation is a vectorized XOR
 against a precomputed mask table -- no per-bit loop, and it batches
 trivially over channels.  Scramble and descramble are the same
 operation (additive scrambler), matching the reference's intent of

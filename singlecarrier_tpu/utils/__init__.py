@@ -1,5 +1,3 @@
-from .compat import (device_complex, fetch, tree_fetch, czeros, cones,
-                     enable_compilation_cache)
+from .cache import compilation_cache_dir, enable_compilation_cache
 
-__all__ = ["device_complex", "fetch", "tree_fetch", "czeros", "cones",
-           "enable_compilation_cache"]
+__all__ = ["compilation_cache_dir", "enable_compilation_cache"]

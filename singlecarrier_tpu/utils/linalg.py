@@ -1,8 +1,7 @@
-"""Small dense linear algebra, unrolled for TPU.
+"""Small dense linear algebra, unrolled.
 
 ``jnp.linalg.solve`` on a batched tiny complex system lowers to a
-generic LU path that is dramatically slower than the surrounding
-pipeline on TPU; for the equalizer's L x L (L=5) hermitian
+generic LU path built for large systems; for the equalizer's L x L (L=5) hermitian
 positive-definite normal equations an unrolled Cholesky is pure
 vectorized arithmetic -- ~L^2/2 fused elementwise ops over the channel
 batch, no loops, no permutations.

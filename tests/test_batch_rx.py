@@ -1,4 +1,4 @@
-"""Block-parallel batch RX (prod_rx_batch) vs the scan paths.
+"""Block-parallel batch RX (prod_rx_batch) vs the scan oracle.
 
 prod_rx_batch removes the lax.scan by computing every carry in closed
 form (mixer phase = phase0 * adv^b, FIR halo = downmixed tail of the
@@ -10,13 +10,30 @@ decisions (valid/bits/lag) must be identical on a real stream.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from singlecarrier_tpu.config import DEFAULT_CONFIG as CFG
 from singlecarrier_tpu.modem import prod_rx_init, tx_stream
 from singlecarrier_tpu.modem.rx_production import (
+    _hunt,
+    _hunt_planes,
     prod_rx_batch,
     prod_rx_stream,
 )
+
+# jit once per (cfg, descramble): eager dispatch of the batched decode
+# is op-by-op and slow on the CPU backend
+_batch = jax.jit(prod_rx_batch, static_argnames=("cfg", "descramble"))
+
+
+def _batch_with_budget(monkeypatch, work_bytes, state, pcm):
+    """The core traced under a ``WORK_BYTES`` of ``work_bytes`` (a fresh
+    jit, so no trace made under another budget is reused)."""
+    from singlecarrier_tpu.modem import rx_production
+
+    monkeypatch.setattr(rx_production, "WORK_BYTES", work_bytes)
+    return jax.jit(lambda s, p: prod_rx_batch(CFG, s, p,
+                                              descramble=False))(state, pcm)
 
 
 def _frames(n_packets=3, seed=41):
@@ -30,17 +47,28 @@ def _frames(n_packets=3, seed=41):
     return bits, buf.reshape(n, CFG.frame_size)
 
 
+def _broadcast(frames, C):
+    return jnp.asarray(np.broadcast_to(
+        frames[:, None, :], (len(frames), C, CFG.frame_size)).copy())
+
+
+def _assert_same_decisions(a, b):
+    """Decision-level equality of two ProdRxOut trees."""
+    a = jax.tree.map(np.asarray, a)
+    b = jax.tree.map(np.asarray, b)
+    assert np.array_equal(a.valid, b.valid)
+    assert np.array_equal(a.lag, b.lag)
+    assert np.array_equal(a.timing_phase, b.timing_phase)
+    v = a.valid
+    assert np.array_equal(a.bits[v], b.bits[v])
+    assert np.array_equal(a.matches[v], b.matches[v])
+
+
 def test_batch_rx_matches_scan_xla():
     bits, frames = _frames()
-    n = len(frames)
     C = 4
-    batch = jnp.asarray(np.broadcast_to(
-        frames[:, None, :], (n, C, CFG.frame_size)).copy())
-
-    st, out_b = prod_rx_batch(
-        CFG, prod_rx_init(CFG, (C,)), batch, descramble=False,
-        block_channels=4, decode_block_channels=4, interpret=True)
-
+    st, out_b = _batch(CFG, prod_rx_init(CFG, (C,)), _broadcast(frames, C),
+                       descramble=False)
     _, out_x = prod_rx_stream(CFG, prod_rx_init(CFG),
                               jnp.asarray(frames), descramble=False)
 
@@ -51,6 +79,8 @@ def test_batch_rx_matches_scan_xla():
                               np.asarray(out_x.bits)[vx])
         assert np.array_equal(np.asarray(out_b.lag[:, c]),
                               np.asarray(out_x.lag))
+        assert np.allclose(np.asarray(out_b.peak[:, c]),
+                           np.asarray(out_x.peak), rtol=1e-4)
     got = np.asarray(out_b.bits[:, 0])[np.asarray(out_b.valid[:, 0])]
     assert np.array_equal(got, bits.reshape(-1, CFG.bits_per_frame))
 
@@ -60,184 +90,46 @@ def test_batch_rx_matches_scan_xla():
                        atol=1e-5)
 
 
-def test_batch_rx_fused_hunt_matches_unfused():
-    """The fully fused hunt+extract+decode kernel (fuse_hunt=True,
-    transposed windows, in-kernel correlation/argmax) must reproduce
-    the XLA-hunt path's decisions exactly: same lag/phase/peak
-    selection semantics (first-max, phase-major) and same decode."""
-    bits, frames = _frames(seed=47)
-    n = len(frames)
-    C = 4
-    batch = jnp.asarray(np.broadcast_to(
-        frames[:, None, :], (n, C, CFG.frame_size)).copy())
-
-    st_f, out_f = prod_rx_batch(
-        CFG, prod_rx_init(CFG, (C,)), batch, descramble=False,
-        block_channels=4, decode_block_channels=4, fuse_hunt=True,
-        interpret=True)
-    st_u, out_u = prod_rx_batch(
-        CFG, prod_rx_init(CFG, (C,)), batch, descramble=False,
-        block_channels=4, decode_block_channels=4, fuse_hunt=False,
-        interpret=True)
-
-    assert np.array_equal(np.asarray(out_f.valid), np.asarray(out_u.valid))
-    assert np.array_equal(np.asarray(out_f.lag), np.asarray(out_u.lag))
-    assert np.array_equal(np.asarray(out_f.timing_phase),
-                          np.asarray(out_u.timing_phase))
-    v = np.asarray(out_u.valid)
-    assert np.array_equal(np.asarray(out_f.bits)[v],
-                          np.asarray(out_u.bits)[v])
-    assert np.allclose(np.asarray(out_f.peak), np.asarray(out_u.peak),
-                       rtol=1e-2)
-    # decoded payload is the sent payload
-    got = np.asarray(out_f.bits[:, 0])[np.asarray(out_f.valid[:, 0])]
-    assert np.array_equal(got, bits.reshape(-1, CFG.bits_per_frame))
-    # carried state identical between the two layouts
-    for a, b in zip(st_f, st_u):
-        assert np.allclose(np.asarray(a.real), np.asarray(b.real))
-        assert np.allclose(np.asarray(a.imag), np.asarray(b.imag))
-
-
-def test_batch_rx_mixer_fold_decodes():
-    """cfg.mixer_fold: the complex-tap folded front-end feeding the
-    fused hunt+decode path must reproduce the premix path's decisions
-    and decode the sent payload (op-order differences stay far below
-    decision margins)."""
-    cfg = CFG.replace(mixer_fold=True)
-    bits, frames = _frames(seed=59)
-    n = len(frames)
-    C = 4
-    batch = jnp.asarray(np.broadcast_to(
-        frames[:, None, :], (n, C, CFG.frame_size)).copy())
-
-    _, out_f = prod_rx_batch(
-        cfg, prod_rx_init(cfg, (C,)), batch, descramble=False,
-        block_channels=4, decode_block_channels=4, interpret=True)
-    _, out_p = prod_rx_batch(
-        CFG, prod_rx_init(CFG, (C,)), batch, descramble=False,
-        block_channels=4, decode_block_channels=4, interpret=True)
-
-    assert np.array_equal(np.asarray(out_f.valid), np.asarray(out_p.valid))
-    assert np.array_equal(np.asarray(out_f.lag), np.asarray(out_p.lag))
-    v = np.asarray(out_p.valid)
-    assert np.array_equal(np.asarray(out_f.bits)[v],
-                          np.asarray(out_p.bits)[v])
-    got = np.asarray(out_f.bits[:, 0])[np.asarray(out_f.valid[:, 0])]
-    assert np.array_equal(got, bits.reshape(-1, CFG.bits_per_frame))
-
-
-def test_batch_rx_fuse_frontend_one_kernel():
-    """fuse_frontend=True (ops/fused_rx.py): the ONE-kernel RX (decim
-    ring carried in VMEM across the time-block grid walk) must match
-    the two-kernel path's decisions and carried state, including
-    across a dispatch boundary (the b==0 ring seeding)."""
-    bits, frames = _frames(seed=67)
-    n = len(frames)
-    C = 4
-    batch = jnp.asarray(np.broadcast_to(
-        frames[:, None, :], (n, C, CFG.frame_size)).copy())
-    half = n // 2
-
-    for cfg in (CFG, CFG.replace(decim_dtype="bf16", hunt_dtype="int8")):
-        st2, out2 = prod_rx_batch(
-            cfg, prod_rx_init(cfg, (C,)), batch, descramble=False,
-            block_channels=4, decode_block_channels=4, interpret=True)
-        # one-kernel path, split into TWO calls (state carry across
-        # dispatches exercises dprev0/tail0 seeding at b==0)
-        st1 = prod_rx_init(cfg, (C,))
-        st1, out_a = prod_rx_batch(
-            cfg, st1, batch[:half], descramble=False,
-            block_channels=4, decode_block_channels=4,
-            fuse_frontend=True, interpret=True)
-        st1, out_b = prod_rx_batch(
-            cfg, st1, batch[half:], descramble=False,
-            block_channels=4, decode_block_channels=4,
-            fuse_frontend=True, interpret=True)
-        out1 = jax.tree.map(
-            lambda a, b: np.concatenate([np.asarray(a),
-                                         np.asarray(b)], 0),
-            out_a, out_b)
-
-        v = np.asarray(out2.valid)
-        assert np.array_equal(np.asarray(out1.valid), v), cfg.hunt_dtype
-        assert np.array_equal(np.asarray(out1.lag), np.asarray(out2.lag))
-        assert np.array_equal(np.asarray(out1.bits)[v],
-                              np.asarray(out2.bits)[v])
-        got = np.asarray(out1.bits)[:, 0][v[:, 0]]
-        assert np.array_equal(got, bits.reshape(-1, CFG.bits_per_frame))
-        assert np.allclose(np.asarray(st1.decim_prev.real),
-                           np.asarray(st2.decim_prev.real), atol=1e-5)
-        assert np.allclose(np.asarray(st1.fir_tail.imag),
-                           np.asarray(st2.fir_tail.imag), atol=1e-6)
-
-
 def test_batch_rx_espan_hunt_norm_matches_xla_and_decodes():
     """cfg.hunt_norm="espan" (shared full-rate-span energy normalizer):
-    the fused kernels' one-contraction denominator must reproduce the
-    XLA oracle's decisions exactly (the phase-summed squared planes are
-    mirrored add-for-add), through BOTH the two-kernel and the
-    one-kernel paths, and still decode the sent payload."""
+    the batch core's decisions equal the scan oracle's, for the bf16
+    and int8 hunts, and the sent payload decodes."""
     bits, frames = _frames(seed=53)
-    n = len(frames)
     C = 4
-    batch = jnp.asarray(np.broadcast_to(
-        frames[:, None, :], (n, C, CFG.frame_size)).copy())
-
     for cfg in (CFG.replace(hunt_norm="espan"),
-                CFG.replace(hunt_norm="espan", hunt_dtype="int8",
-                            decim_dtype="bf16")):
-        _, out_x = prod_rx_batch(
-            cfg, prod_rx_init(cfg, (C,)), batch, descramble=False,
-            block_channels=4, decode_block_channels=4, fuse_hunt=False,
-            interpret=True)
-        _, out_2 = prod_rx_batch(
-            cfg, prod_rx_init(cfg, (C,)), batch, descramble=False,
-            block_channels=4, decode_block_channels=4, interpret=True)
-        _, out_1 = prod_rx_batch(
-            cfg, prod_rx_init(cfg, (C,)), batch, descramble=False,
-            block_channels=4, decode_block_channels=4,
-            fuse_frontend=True, interpret=True)
-
-        v = np.asarray(out_x.valid)
-        for out_p in (out_2, out_1):
-            assert np.array_equal(np.asarray(out_p.valid), v)
-            assert np.array_equal(np.asarray(out_p.lag),
-                                  np.asarray(out_x.lag))
-            assert np.array_equal(np.asarray(out_p.timing_phase),
-                                  np.asarray(out_x.timing_phase))
-            assert np.array_equal(np.asarray(out_p.bits)[v],
-                                  np.asarray(out_x.bits)[v])
-        got = np.asarray(out_1.bits)[:, 0][v[:, 0]]
+                CFG.replace(hunt_norm="espan", hunt_dtype="int8")):
+        _, out_b = _batch(cfg, prod_rx_init(cfg, (C,)),
+                          _broadcast(frames, C), descramble=False)
+        _, out_x = prod_rx_stream(cfg, prod_rx_init(cfg),
+                                  jnp.asarray(frames), descramble=False)
+        ref = jax.tree.map(
+            lambda x: jnp.broadcast_to(x[:, None], (x.shape[0], C)
+                                       + x.shape[1:]), out_x)
+        _assert_same_decisions(out_b, ref)
+        v = np.asarray(out_b.valid)
+        got = np.asarray(out_b.bits)[:, 0][v[:, 0]]
         assert np.array_equal(got, bits.reshape(-1, CFG.bits_per_frame))
 
 
 def test_batch_rx_refit_symbols_matches_xla_and_decodes():
-    """cfg.ls_refit_symbols (refit-window throughput knob): the fused
-    kernels fit the decision-directed refit on the first R data windows
-    only; the XLA oracle mirrors it (ls_equalizer.ls_refit n_fit), so
-    decisions must stay identical between paths, and on a clean stream
-    the truncated refit must still decode the payload bit-exact."""
+    """cfg.ls_refit_symbols (refit-window knob): the batch core and the
+    scan oracle fit the decision-directed refit on the first R data
+    windows, so decisions stay identical between paths, and on a clean
+    stream the truncated refit still decodes the payload bit-exact."""
     bits, frames = _frames(seed=59)
-    n = len(frames)
     C = 4
-    batch = jnp.asarray(np.broadcast_to(
-        frames[:, None, :], (n, C, CFG.frame_size)).copy())
-
     cfg = CFG.replace(ls_refit_symbols=128)
-    _, out_x = prod_rx_batch(
-        cfg, prod_rx_init(cfg, (C,)), batch, descramble=False,
-        block_channels=4, decode_block_channels=4, fuse_hunt=False,
-        interpret=True)
-    _, out_1 = prod_rx_batch(
-        cfg, prod_rx_init(cfg, (C,)), batch, descramble=False,
-        block_channels=4, decode_block_channels=4,
-        fuse_frontend=True, interpret=True)
+    _, out_b = _batch(cfg, prod_rx_init(cfg, (C,)), _broadcast(frames, C),
+                      descramble=False)
+    _, out_x = prod_rx_stream(cfg, prod_rx_init(cfg), jnp.asarray(frames),
+                              descramble=False)
 
     v = np.asarray(out_x.valid)
-    assert np.array_equal(np.asarray(out_1.valid), v)
-    assert np.array_equal(np.asarray(out_1.bits)[v],
-                          np.asarray(out_x.bits)[v])
-    got = np.asarray(out_1.bits)[:, 0][v[:, 0]]
+    for c in range(C):
+        assert np.array_equal(np.asarray(out_b.valid[:, c]), v)
+        assert np.array_equal(np.asarray(out_b.bits[:, c])[v],
+                              np.asarray(out_x.bits)[v])
+    got = np.asarray(out_b.bits)[:, 0][np.asarray(out_b.valid)[:, 0]]
     assert np.array_equal(got, bits.reshape(-1, CFG.bits_per_frame))
 
 
@@ -249,99 +141,72 @@ def test_superstep_stream_matches_batch():
     from singlecarrier_tpu.modem.rx_production import (
         prod_rx_stream_superstep)
 
-    bits, frames = _frames(n_packets=4, seed=71)
+    _, frames = _frames(n_packets=4, seed=71)
     n = len(frames) - (len(frames) % 2)
     C = 4
-    batch = jnp.asarray(np.broadcast_to(
-        frames[:n, None, :], (n, C, CFG.frame_size)).copy())
+    batch = _broadcast(frames[:n], C)
 
-    _, out_b = prod_rx_batch(
-        CFG, prod_rx_init(CFG, (C,)), batch, descramble=False,
-        block_channels=4, decode_block_channels=4, interpret=True)
-    _, out_s = prod_rx_stream_superstep(
-        CFG, prod_rx_init_planes(CFG, C), batch, superstep=2,
-        descramble=False, block_channels=4, decode_block_channels=4,
-        interpret=True)
-
-    v = np.asarray(out_b.valid)
-    assert np.array_equal(np.asarray(out_s.valid), v)
-    assert np.array_equal(np.asarray(out_s.bits)[v],
-                          np.asarray(out_b.bits)[v])
-    assert np.array_equal(np.asarray(out_s.lag), np.asarray(out_b.lag))
+    _, out_b = _batch(CFG, prod_rx_init(CFG, (C,)), batch,
+                      descramble=False)
+    _, out_s = jax.jit(lambda s, p: prod_rx_stream_superstep(
+        CFG, s, p, superstep=2, descramble=False))(
+            prod_rx_init_planes(CFG, C), batch)
+    _assert_same_decisions(out_s, out_b)
 
 
 def test_batch_rx_int8_hunt_matches_xla_and_decodes():
-    """cfg.hunt_dtype="int8": the quantized-correlation hunt (int8
-    MXU path) must agree with the XLA oracle running the SAME
-    quantized math (int32 accumulation is exact, so fused/unfused
-    decisions are bit-identical), and must still decode the payload
-    -- the ~-40 dBc quantization floor is far below the detection
-    statistic's noise."""
+    """cfg.hunt_dtype="int8": the quantized-correlation hunt (int32
+    accumulation is exact) gives the oracle's decisions running the
+    SAME quantized math, keeps the bf16 hunt's detections on a clean
+    stream, and decodes the payload -- the ~-40 dBc quantization floor
+    is far below the detection statistic's noise."""
     cfg = CFG.replace(hunt_dtype="int8")
     bits, frames = _frames(seed=53)
-    n = len(frames)
     C = 4
-    batch = jnp.asarray(np.broadcast_to(
-        frames[:, None, :], (n, C, CFG.frame_size)).copy())
+    batch = _broadcast(frames, C)
 
-    _, out_f = prod_rx_batch(
-        cfg, prod_rx_init(cfg, (C,)), batch, descramble=False,
-        block_channels=4, decode_block_channels=4, fuse_hunt=True,
-        interpret=True)
-    _, out_u = prod_rx_batch(
-        cfg, prod_rx_init(cfg, (C,)), batch, descramble=False,
-        block_channels=4, decode_block_channels=4, fuse_hunt=False,
-        interpret=True)
+    _, out_f = _batch(cfg, prod_rx_init(cfg, (C,)), batch,
+                      descramble=False)
+    _, out_x = prod_rx_stream(cfg, prod_rx_init(cfg), jnp.asarray(frames),
+                              descramble=False)
+    v = np.asarray(out_x.valid)
+    assert np.array_equal(np.asarray(out_f.valid[:, 0]), v)
+    assert np.array_equal(np.asarray(out_f.lag[:, 0]),
+                          np.asarray(out_x.lag))
+    assert np.array_equal(np.asarray(out_f.bits[:, 0])[v],
+                          np.asarray(out_x.bits)[v])
 
-    assert np.array_equal(np.asarray(out_f.valid), np.asarray(out_u.valid))
-    assert np.array_equal(np.asarray(out_f.lag), np.asarray(out_u.lag))
-    assert np.array_equal(np.asarray(out_f.timing_phase),
-                          np.asarray(out_u.timing_phase))
-    v = np.asarray(out_u.valid)
-    assert np.array_equal(np.asarray(out_f.bits)[v],
-                          np.asarray(out_u.bits)[v])
-    # int8 quantization must not change the f32 hunt's DECISIONS on a
+    # int8 quantization must not change the bf16 hunt's DECISIONS on a
     # clean stream (peak/lag selection is noise-margined)
-    _, out_ref = prod_rx_batch(
-        CFG, prod_rx_init(CFG, (C,)), batch, descramble=False,
-        block_channels=4, decode_block_channels=4, fuse_hunt=True,
-        interpret=True)
-    assert np.array_equal(np.asarray(out_f.valid),
-                          np.asarray(out_ref.valid))
+    _, out_ref = _batch(CFG, prod_rx_init(CFG, (C,)), batch,
+                        descramble=False)
+    vf = np.asarray(out_f.valid)
+    assert np.array_equal(vf, np.asarray(out_ref.valid))
     # lag compared on DETECTED blocks only: on the no-signal tail
-    # blocks the espan-normalized statistic is a ~0/~0 knife-edge and
-    # the int8-vs-bf16 argmax legitimately lands on different
-    # (discarded) lags -- only gated decisions are noise-margined
-    assert np.array_equal(np.asarray(out_f.lag)[v],
-                          np.asarray(out_ref.lag)[v])
-    # peak statistic back in matched-filter units (1/s^2 rescale).
-    # On a CLEAN repeated stream the round() bias is COHERENT across
-    # chips (every chip of the matched preamble rounds the same way),
-    # giving a deterministic few-% offset -- irrelevant to a detection
-    # statistic gated at 20x energy, so the tolerance is loose.
-    pk_f = np.asarray(out_f.peak)[v]
-    pk_r = np.asarray(out_ref.peak)[v]
-    assert np.allclose(pk_f, pk_r, rtol=0.15)
-    got = np.asarray(out_f.bits[:, 0])[np.asarray(out_f.valid[:, 0])]
+    # blocks the espan-normalized statistic is a ~0/~0 knife-edge
+    assert np.array_equal(np.asarray(out_f.lag)[vf],
+                          np.asarray(out_ref.lag)[vf])
+    # peak statistic back in matched-filter units (1/s^2 rescale); the
+    # round() bias is coherent across the chips of a clean preamble,
+    # a deterministic few-% offset -- irrelevant to a gated statistic
+    assert np.allclose(np.asarray(out_f.peak)[vf],
+                       np.asarray(out_ref.peak)[vf], rtol=0.15)
+    got = np.asarray(out_f.bits[:, 0])[vf[:, 0]]
     assert np.array_equal(got, bits.reshape(-1, CFG.bits_per_frame))
 
 
 def test_batch_rx_on_shipped_golden_vector(golden_raw):
-    """The fused Pallas batch path decodes the reference's shipped
-    10-packet vector (preamble_qpsk_8k.raw) with the same decisions as
-    the XLA production path (10/10 detects; the reference itself
-    detects 3 -- modem/rx_production.py docstring)."""
+    """The batch core decodes the reference's shipped 10-packet vector
+    (preamble_qpsk_8k.raw) with the same decisions as the scan oracle
+    (10/10 detects; the reference itself detects 3 --
+    modem/rx_production.py docstring)."""
     n = -(-len(golden_raw) // CFG.frame_size) + 1
     buf = np.zeros(n * CFG.frame_size, np.int16)
     buf[:len(golden_raw)] = golden_raw
     frames = buf.reshape(n, CFG.frame_size)
     C = 2
-    batch = jnp.asarray(np.broadcast_to(
-        frames[:, None, :], (n, C, CFG.frame_size)).copy())
-
-    _, ob = prod_rx_batch(
-        CFG, prod_rx_init(CFG, (C,)), batch, descramble=True,
-        block_channels=2, decode_block_channels=2, interpret=True)
+    _, ob = _batch(CFG, prod_rx_init(CFG, (C,)), _broadcast(frames, C),
+                   descramble=True)
     _, ox = prod_rx_stream(CFG, prod_rx_init(CFG), jnp.asarray(frames),
                            descramble=True)
 
@@ -377,128 +242,155 @@ def test_batch_rx_int8_hunt_detection_low_snr():
     det = {}
     for hd in ("f32", "int8"):
         cfg = CFG.replace(hunt_dtype=hd)
-        _, o = prod_rx_batch(
-            cfg, prod_rx_init(cfg, (C,)), frames, descramble=False,
-            block_channels=C, decode_block_channels=C, fuse_hunt=True,
-            interpret=True)
+        _, o = _batch(cfg, prod_rx_init(cfg, (C,)), frames,
+                      descramble=False)
         det[hd] = np.asarray(o.valid)
     assert det["f32"].sum() == C * n_pkts            # all found at f32
     assert np.array_equal(det["int8"], det["f32"])   # int8 loses none
 
 
-def test_batch_rx_lagtile_hunt_matches_chunk():
-    """cfg.hunt_scheme="lagtile" (one matmul per 128-lag tile against
-    its K=384 aligned window slice, 1.33x fewer MACs) reproduces the
-    chunk schedule's decisions exactly (same correlation values up to
-    f32 reassociation; EXACTLY with int8 accumulation)."""
-    bits, frames = _frames(seed=61)
-    n = len(frames)
-    C = 4
-    batch = jnp.asarray(np.broadcast_to(
-        frames[:, None, :], (n, C, CFG.frame_size)).copy())
-
-    outs = {}
-    for scheme in ("chunk", "lagtile"):
-        for hd in ("bf16", "int8"):
-            cfg = CFG.replace(hunt_scheme=scheme, hunt_dtype=hd)
-            _, o = prod_rx_batch(
-                cfg, prod_rx_init(cfg, (C,)), batch, descramble=False,
-                block_channels=4, decode_block_channels=4,
-                fuse_hunt=True, interpret=True)
-            outs[(scheme, hd)] = jax.tree.map(np.asarray, o)
-    for hd in ("bf16", "int8"):
-        a, b = outs[("chunk", hd)], outs[("lagtile", hd)]
-        assert np.array_equal(a.valid, b.valid), hd
-        assert np.array_equal(a.lag, b.lag), hd
-        assert np.array_equal(a.timing_phase, b.timing_phase), hd
-        v = a.valid
-        assert np.array_equal(a.bits[v], b.bits[v]), hd
-        if hd == "int8":
-            # int32 accumulation: the peak statistic is bit-identical
-            assert np.array_equal(a.peak, b.peak)
-    got = outs[("lagtile", "int8")]
-    gv = got.valid[:, 0]
-    assert np.array_equal(got.bits[:, 0][gv],
-                          bits.reshape(-1, CFG.bits_per_frame))
-
-
 def test_batch_rx_plane_state_matches_complex():
     """The plane-typed state (prod_rx_init_planes; carried in the
-    fused kernels' exact [cyc, 2, C, n_sym] layout to skip the
-    per-dispatch complex<->plane transposes) decodes identically to
-    the complex ProdRxState, including across a split-stream carry."""
+    core's channel-major [C, cyc, 2, n_sym] layout) decodes identically
+    to the complex ProdRxState, including across a split-stream carry,
+    and converts back to the complex carry."""
     from singlecarrier_tpu.modem import (planes_to_state,
-                                         prod_rx_init_planes)
+                                     prod_rx_init_planes)
 
-    bits, frames = _frames(seed=59)
+    _, frames = _frames(seed=59)
     n = len(frames)
     C = 2
-    batch = jnp.asarray(np.broadcast_to(
-        frames[:, None, :], (n, C, CFG.frame_size)).copy())
+    batch = _broadcast(frames, C)
 
-    _, out_c = prod_rx_batch(
-        CFG, prod_rx_init(CFG, (C,)), batch, descramble=False,
-        block_channels=2, decode_block_channels=2, interpret=True)
-    st_p, out_p = prod_rx_batch(
-        CFG, prod_rx_init_planes(CFG, C), batch, descramble=False,
-        block_channels=2, decode_block_channels=2, interpret=True)
-
-    assert np.array_equal(np.asarray(out_p.valid), np.asarray(out_c.valid))
-    v = np.asarray(out_c.valid)
-    assert np.array_equal(np.asarray(out_p.bits)[v],
-                          np.asarray(out_c.bits)[v])
-    assert np.array_equal(np.asarray(out_p.lag), np.asarray(out_c.lag))
+    st_c, out_c = _batch(CFG, prod_rx_init(CFG, (C,)), batch,
+                         descramble=False)
+    st_p, out_p = _batch(CFG, prod_rx_init_planes(CFG, C), batch,
+                         descramble=False)
+    _assert_same_decisions(out_p, out_c)
     assert isinstance(st_p, tuple) and len(st_p) == 5
 
     # split-stream carry in plane form == one call
     cut = n // 2
-    st1, out_a = prod_rx_batch(
-        CFG, prod_rx_init_planes(CFG, C), batch[:cut], descramble=False,
-        block_channels=2, decode_block_channels=2, interpret=True)
-    _, out_b2 = prod_rx_batch(
-        CFG, st1, batch[cut:], descramble=False,
-        block_channels=2, decode_block_channels=2, interpret=True)
-    va = np.concatenate([np.asarray(out_a.valid), np.asarray(out_b2.valid)])
-    ba = np.concatenate([np.asarray(out_a.bits), np.asarray(out_b2.bits)])
-    assert np.array_equal(va, v)
-    assert np.array_equal(ba[v], np.asarray(out_c.bits)[v])
+    st1, out_a = _batch(CFG, prod_rx_init_planes(CFG, C), batch[:cut],
+                        descramble=False)
+    _, out_b2 = _batch(CFG, st1, batch[cut:], descramble=False)
+    joined = jax.tree.map(
+        lambda a, b: np.concatenate([np.asarray(a), np.asarray(b)]),
+        out_a, out_b2)
+    _assert_same_decisions(joined, out_c)
 
-    # plane state converts back to a ProdRxState equal to the complex
-    # carry (decim dtype permitting)
-    st_c, _ = prod_rx_batch(
-        CFG, prod_rx_init(CFG, (C,)), batch, descramble=False,
-        block_channels=2, decode_block_channels=2, interpret=True)
     st_rt = planes_to_state(st_p)
     assert np.allclose(np.asarray(st_rt.phase.real),
                        np.asarray(st_c.phase.real), atol=1e-6)
-    assert np.allclose(np.asarray(st_rt.decim_prev.real),
-                       np.asarray(st_c.decim_prev.real), atol=1e-2)
+    assert np.allclose(np.asarray(st_rt.decim_prev),
+                       np.asarray(st_c.decim_prev), atol=1e-6)
 
 
 def test_batch_rx_state_carry_across_calls():
     """Splitting the stream into two prod_rx_batch calls (state carried
     between them) decodes identically to one call -- the closed-form
     carries splice exactly."""
-    bits, frames = _frames(seed=43)
+    _, frames = _frames(seed=43)
     n = len(frames)
     C = 2
-    batch = jnp.asarray(np.broadcast_to(
-        frames[:, None, :], (n, C, CFG.frame_size)).copy())
+    batch = _broadcast(frames, C)
 
-    _, out_full = prod_rx_batch(
-        CFG, prod_rx_init(CFG, (C,)), batch, descramble=False,
-        block_channels=2, decode_block_channels=2, interpret=True)
-
+    _, out_full = _batch(CFG, prod_rx_init(CFG, (C,)), batch,
+                         descramble=False)
     cut = n // 2
-    st, out_a = prod_rx_batch(
-        CFG, prod_rx_init(CFG, (C,)), batch[:cut], descramble=False,
-        block_channels=2, decode_block_channels=2, interpret=True)
-    _, out_c = prod_rx_batch(
-        CFG, st, batch[cut:], descramble=False,
-        block_channels=2, decode_block_channels=2, interpret=True)
+    st, out_a = _batch(CFG, prod_rx_init(CFG, (C,)), batch[:cut],
+                       descramble=False)
+    _, out_c = _batch(CFG, st, batch[cut:], descramble=False)
+    joined = jax.tree.map(
+        lambda a, b: np.concatenate([np.asarray(a), np.asarray(b)]),
+        out_a, out_c)
+    _assert_same_decisions(joined, out_full)
 
-    va = np.concatenate([np.asarray(out_a.valid), np.asarray(out_c.valid)])
-    ba = np.concatenate([np.asarray(out_a.bits), np.asarray(out_c.bits)])
-    vf = np.asarray(out_full.valid)
-    assert np.array_equal(va, vf)
-    assert np.array_equal(ba[vf], np.asarray(out_full.bits)[vf])
+
+def _distinct_channels(frames, C):
+    """[B, C, n]: channel c carries the stream delayed by 137*c
+    samples, so a channel landing in the wrong slot changes lag."""
+    flat = frames.reshape(-1)
+    rows = [np.roll(flat, 137 * c).reshape(frames.shape)
+            for c in range(C)]
+    return jnp.asarray(np.stack(rows, 1))
+
+
+@pytest.mark.parametrize("C", [3, 15])
+def test_batch_rx_channel_counts_without_power_of_two_factor(C,
+                                                             monkeypatch):
+    """Channel counts with no power-of-two factor run, and a small work
+    budget (several channel chunks, the last one clamped to overlap its
+    neighbor) gives the decisions of one whole dispatch, channel by
+    channel."""
+    from singlecarrier_tpu.modem.rx_production import _pair_bytes
+
+    _, frames = _frames(seed=83)
+    batch = _distinct_channels(frames, C)
+    B = batch.shape[0]
+    st1, one = _batch(CFG, prod_rx_init(CFG, (C,)), batch,
+                      descramble=False)
+    small = 2 * B * _pair_bytes(CFG)           # two channels per chunk
+    st2, chunked = _batch_with_budget(monkeypatch, small,
+                                      prod_rx_init(CFG, (C,)), batch)
+    _assert_same_decisions(chunked, one)
+    assert np.asarray(one.valid).sum() >= 2 * C
+    assert np.allclose(np.asarray(st1.decim_prev),
+                       np.asarray(st2.decim_prev), atol=1e-6)
+
+
+def test_batch_rx_chunked_hunt_equals_unchunked(monkeypatch):
+    """One channel per chunk (the smallest work budget) equals one
+    dispatch: decisions exactly, float statistics to rounding."""
+    _, frames = _frames(seed=89)
+    C = 4
+    batch = _distinct_channels(frames, C)
+    _, one = _batch(CFG, prod_rx_init(CFG, (C,)), batch,
+                    descramble=False)
+    _, chunked = _batch_with_budget(monkeypatch, 1,
+                                    prod_rx_init(CFG, (C,)), batch)
+    _assert_same_decisions(chunked, one)
+    for name in ("peak", "energy", "eq_error"):
+        assert np.allclose(np.asarray(getattr(chunked, name)),
+                           np.asarray(getattr(one, name)),
+                           rtol=1e-4, atol=1e-6), name
+
+
+@pytest.mark.parametrize("hunt_norm", ["espan", "none"])
+@pytest.mark.parametrize("hunt_dtype", ["f32", "bf16", "int8"])
+def test_hunt_planes_matches_complex_hunt(hunt_dtype, hunt_norm):
+    """The batch core's plane-typed hunt equals the oracle's complex
+    hunt on real hunt windows (same lag, phase and peak), and locates
+    every packet of the stream."""
+    from singlecarrier_tpu.dsp.frontend import frontend_reference
+
+    cfg = CFG.replace(hunt_dtype=hunt_dtype, hunt_norm=hunt_norm)
+    bits, frames = _frames(seed=97)
+    st = prod_rx_init(cfg)
+    filt = []
+    for f in frames:
+        y, tail, phase = frontend_reference(cfg, jnp.asarray(f),
+                                            st.phase, st.fir_tail)
+        st = st._replace(phase=phase, fir_tail=tail)
+        filt.append(np.asarray(y).reshape(cfg.symbols_per_block,
+                                          cfg.cycles).T)
+    decim = np.stack(filt)                              # [B, cyc, n_sym]
+    prev = np.concatenate([np.zeros_like(decim[:1]), decim[:-1]])
+    windows = np.concatenate([prev, decim], -1)         # [B, cyc, 2n]
+    planes = np.stack([windows.real, windows.imag], 2).astype(np.float32)
+
+    lag_c, ph_c, pk_c, _ = jax.jit(lambda w: _hunt(cfg, w))(
+        jnp.asarray(windows.astype(np.complex64)))
+    lag_p, ph_p, pk_p = jax.jit(lambda w: _hunt_planes(cfg, w))(
+        jnp.asarray(planes))
+    assert np.array_equal(np.asarray(lag_p), np.asarray(lag_c))
+    assert np.array_equal(np.asarray(ph_p), np.asarray(ph_c))
+    assert np.allclose(np.asarray(pk_p), np.asarray(pk_c), rtol=1e-5)
+
+    # every packet start (sample p*packet_size of the stream, plus the
+    # TX+RX matched-filter delay of ntaps-1 samples) is found
+    pos = ((np.arange(len(frames)) - 1) * cfg.frame_size
+           + np.asarray(lag_p) * cfg.cycles + np.asarray(ph_p))
+    for p in range(len(bits)):
+        err = pos - p * cfg.packet_size - (cfg.ntaps - 1)
+        assert np.min(np.abs(err)) <= 1, p

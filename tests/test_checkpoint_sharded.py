@@ -1,7 +1,7 @@
-"""Sharded (orbax) checkpoint/restore tests on the 8-device mesh.
+"""Sharded checkpoint/restore tests on the 8-device mesh.
 
 The scalable checkpoint path (runtime/checkpoint.py save_sharded):
-state stays sharded on the mesh through save and restore -- no
+per-shard files, restored shard by shard onto the mesh -- no
 gather-to-host -- and restore-and-replay is bit-identical.
 """
 
@@ -64,7 +64,7 @@ def test_sharded_save_restore_roundtrip(mesh, tmp_path):
 
 
 def test_sharded_restore_and_replay_bit_identical(mesh, stream, tmp_path):
-    """Demodulate half the stream, orbax-checkpoint the SHARDED state,
+    """Demodulate half the stream, checkpoint the SHARDED state,
     restore onto the mesh, replay the rest: identical bits to the
     uninterrupted sharded run."""
     fn = make_channel_sharded_rx(CFG, mesh, descramble=False)
@@ -89,8 +89,8 @@ def test_sharded_restore_and_replay_bit_identical(mesh, stream, tmp_path):
 
 def test_plane_state_checkpoint_resume_headline_path(mesh, tmp_path):
     """Checkpoint/resume of the PLANE-TYPED state on the sharded mesh
-    -- the state layout the headline fused path actually deploys with
-    (prod_rx_init_planes + make_fused_sharded_rx).  Save mid-stream,
+    -- the state layout the batch core deploys with
+    (prod_rx_init_planes + make_sharded_batch_rx).  Save mid-stream,
     restore onto the mesh, continue: decisions must match the
     uninterrupted run."""
     import jax
@@ -99,8 +99,8 @@ def test_plane_state_checkpoint_resume_headline_path(mesh, tmp_path):
     from singlecarrier_tpu.modem import tx_stream
     from singlecarrier_tpu.modem.rx_production import (
         prod_rx_batch, prod_rx_init_planes)
-    from singlecarrier_tpu.parallel import (make_fused_sharded_rx,
-                                            shard_plane_state)
+    from singlecarrier_tpu.parallel import (make_sharded_batch_rx,
+                                        shard_plane_state)
     from singlecarrier_tpu.runtime.checkpoint import (restore_sharded,
                                                       save_sharded)
 
@@ -117,8 +117,7 @@ def test_plane_state_checkpoint_resume_headline_path(mesh, tmp_path):
         buf.reshape(B, 1, cfg.frame_size),
         (B, C, cfg.frame_size)).copy())
 
-    fn = make_fused_sharded_rx(cfg, mesh, descramble=False,
-                               decode_block_channels=1, interpret=True)
+    fn = make_sharded_batch_rx(cfg, mesh, descramble=False)
     st = shard_plane_state(prod_rx_init_planes(cfg, C), mesh)
     st, out_a = fn(st, frames[:B // 2])
 
@@ -131,9 +130,8 @@ def test_plane_state_checkpoint_resume_headline_path(mesh, tmp_path):
     st_r, out_b = fn(st_r, frames[B // 2:])
 
     # uninterrupted reference
-    _, ref = prod_rx_batch(cfg, prod_rx_init_planes(cfg, C), frames,
-                           descramble=False, decode_block_channels=1,
-                           fuse_frontend=True, interpret=True)
+    _, ref = jax.jit(lambda s, p: prod_rx_batch(
+        cfg, s, p, descramble=False))(prod_rx_init_planes(cfg, C), frames)
     ref = jax.tree.map(np.asarray, ref)
     got_v = np.concatenate([np.asarray(out_a.valid),
                             np.asarray(out_b.valid)], 0)
@@ -141,3 +139,31 @@ def test_plane_state_checkpoint_resume_headline_path(mesh, tmp_path):
                             np.asarray(out_b.bits)], 0)
     assert np.array_equal(got_v, ref.valid)
     assert np.array_equal(got_b[ref.valid], ref.bits[ref.valid])
+
+
+def test_sharded_restore_onto_other_layout(mesh, tmp_path):
+    """Shards saved from an 8-way channel sharding restore onto a
+    4-way mesh and onto an unsharded target: each target shard is
+    assembled from the saved pieces that overlap it."""
+    from singlecarrier_tpu.modem.rx_production import prod_rx_init_planes
+    from singlecarrier_tpu.parallel import shard_plane_state
+
+    rng = np.random.default_rng(5)
+    planes = tuple(jnp.asarray(rng.normal(size=x.shape).astype(x.dtype))
+                   for x in prod_rx_init_planes(CFG, N_CH))
+    save_sharded(str(tmp_path / "p"), shard_plane_state(planes, mesh),
+                 step=3)
+
+    mesh4 = Mesh(np.array(jax.devices()[:4]), ("ch",))
+    like = shard_plane_state(prod_rx_init_planes(CFG, N_CH), mesh4)
+    got, step = restore_sharded(str(tmp_path / "p"), like)
+    assert step == 3
+    for g, w, l in zip(got, planes, like):
+        assert g.sharding == l.sharding
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+    flat = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype),
+                        planes)
+    got, _ = restore_sharded(str(tmp_path / "p"), flat)
+    for g, w in zip(got, planes):
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w))

@@ -1,9 +1,9 @@
 """Detection-gated two-phase RX (modem/rx_gated.py).
 
-The gated pipeline (gate-stage kernel -> shape-static compaction ->
-fused decode over the compacted pairs) must reproduce the full fused
-path's decisions bit-for-bit, including for detections at block 0 of
-a dispatch -- the cross-dispatch case the streaming state exists for
+The gated pipeline (the batch core cut after the gate -> shape-static
+compaction -> the core over the compacted pairs) must reproduce the
+full batch core's decisions, including for detections at block 0 of a
+dispatch -- the cross-dispatch case the streaming state exists for
 (the pair's prev block and its tail seed ride GatedRxState).
 """
 
@@ -33,11 +33,15 @@ def _stream(n_packets=3, seed=71, C=4):
 
 
 def _full_reference(batch, C):
-    _, out = prod_rx_batch(
-        CFG, prod_rx_init(CFG, (C,)), batch, descramble=False,
-        block_channels=C, decode_block_channels=C, fuse_frontend=True,
-        interpret=True)
+    _, out = jax.jit(lambda s, p: prod_rx_batch(CFG, s, p,
+                                                descramble=False))(
+        prod_rx_init(CFG, (C,)), batch)
     return out
+
+
+def _gated(st, batch, K):
+    return jax.jit(lambda s, p: prod_rx_batch_gated(
+        CFG, s, p, max_detections=K, descramble=False))(st, batch)
 
 
 def _check_rows(out_g, full, C, b_off=0):
@@ -65,9 +69,7 @@ def test_gated_rx_matches_full_path_single_dispatch():
     n_valid = int(np.asarray(full.valid).sum())
 
     st = prod_rx_gated_init(CFG, C)
-    st, out_g = prod_rx_batch_gated(
-        CFG, st, batch, max_detections=2 * n_valid,
-        block_channels=C, descramble=False, interpret=True)
+    st, out_g = _gated(st, batch, 2 * n_valid)
     # the energy gate alone fires on MORE blocks than the final
     # criterion (partial-preamble neighbors pass the gate, phase 2's
     # match threshold rejects them) -- count reports gate hits
@@ -92,12 +94,8 @@ def test_gated_rx_streaming_seam_block0_detection():
     n_valid = int(np.asarray(full.valid).sum())
 
     st = prod_rx_gated_init(CFG, C)
-    st, out_a = prod_rx_batch_gated(
-        CFG, st, batch[:split], max_detections=16, block_channels=C,
-        descramble=False, interpret=True)
-    st, out_b = prod_rx_batch_gated(
-        CFG, st, batch[split:], max_detections=16, block_channels=C,
-        descramble=False, interpret=True)
+    st, out_a = _gated(st, batch[:split], 16)
+    st, out_b = _gated(st, batch[split:], 16)
 
     got = (_check_rows(out_a, full, C)
            + _check_rows(out_b, full, C, b_off=split))
@@ -108,27 +106,30 @@ def test_gated_rx_streaming_seam_block0_detection():
     assert vb2.any()
 
 
-def test_gated_rx_non_128_multiple_channels_trace():
-    """Code-review r5 finding #1: C=192 (a legal 64-multiple that is
-    not a 128-multiple) and a non-divisor K must trace without hitting
-    the kernel's divisibility assert (divisor-aware _auto_cb picks).
-    eval_shape keeps this cheap -- the crash was at trace time."""
+def test_gated_rx_non_128_multiple_channels_trace(monkeypatch):
+    """Any channel count and capacity traces: C=192 (not a power of
+    two) and a K that divides nothing, through a small work budget
+    that splits both phases into channel chunks.  eval_shape keeps
+    this cheap."""
+    from singlecarrier_tpu.modem import rx_production
+
+    monkeypatch.setattr(rx_production, "WORK_BYTES", 1 << 26)
     C, B, K = 192, 2, 12
     st = prod_rx_gated_init(CFG, C)
     pcm = jnp.zeros((B, C, CFG.frame_size), jnp.int16)
     out_shape = jax.eval_shape(
         lambda s, p: prod_rx_batch_gated(
-            CFG, s, p, max_detections=K, interpret=True),
+            CFG, s, p, max_detections=K),
         st, pcm)
-    assert out_shape[1]["dibits"].shape == (K, CFG.frame_symbols)
+    assert out_shape[1]["bits"].shape == (K, CFG.bits_per_frame)
+    assert out_shape[0].planes[4].shape == (
+        C, CFG.cycles, 2, CFG.symbols_per_block)
 
 
 def test_gated_rx_capacity_truncation_reported():
     C = 4
     _, batch = _stream(C=C)
     st = prod_rx_gated_init(CFG, C)
-    st, out_g = prod_rx_batch_gated(
-        CFG, st, batch, max_detections=2, block_channels=2,
-        descramble=False, interpret=True)
+    st, out_g = _gated(st, batch, 2)
     assert int(out_g["count"]) > 2          # truncation is visible
     assert int(np.asarray(out_g["valid"]).sum()) <= 2

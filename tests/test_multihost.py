@@ -5,8 +5,7 @@ together with ``jax.distributed.initialize`` (parallel/multihost.py):
 a 4-device global mesh spanning 2 "hosts".  Each host feeds its own
 channel shard of a real modulated stream and verifies the decoded bits
 of its local shards -- the pod launch path executed for real, not
-dry-run (VERDICT round-1 gap: multihost.py had never run with >1
-process).
+dry-run.
 """
 
 import os
@@ -52,3 +51,24 @@ def test_two_process_multihost_decode(tmp_path):
     for p, out in zip(procs, outs):
         assert p.returncode == 0, joined
         assert "VERIFIED" in out, joined
+
+
+def test_local_processes_pin_one_card_each(monkeypatch):
+    """Processes coordinated on this host each own one card (a second
+    JAX process on a held card fails); a remote coordinator leaves the
+    choice to the caller."""
+    import jax
+
+    from singlecarrier_tpu.parallel import multihost
+
+    calls = []
+    monkeypatch.setattr(jax.distributed, "initialize",
+                        lambda **kw: calls.append(kw))
+    multihost.initialize("localhost:1234", 4, 2)
+    multihost.initialize("127.0.0.1:1234", 4, 3)
+    multihost.initialize("10.0.0.1:1234", 4, 1)
+    multihost.initialize("10.0.0.1:1234", 4, 1, local_device_ids=[0, 1])
+    assert [c["local_device_ids"] for c in calls] == [[2], [3], None,
+                                                      [0, 1]]
+    multihost.initialize(None)                # single process: no-op
+    assert len(calls) == 4

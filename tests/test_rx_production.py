@@ -186,18 +186,18 @@ def test_batched_channels_with_different_offsets(golden):
 
 
 def test_batch_rejects_frac_timing():
-    """VERDICT r4 weak #4: the batch paths run integer timing only; a
-    frac_timing config must raise instead of silently losing the
-    feature (the streaming path falls back -- prod_rx_stream_pallas)."""
-    from singlecarrier_tpu.modem.rx_production import prod_rx_batch
+    """The batch core runs integer timing only; a frac_timing config
+    must raise instead of silently losing the feature (the scan oracle
+    prod_rx_stream has it), for the complex and the plane state."""
+    from singlecarrier_tpu.modem.rx_production import (prod_rx_batch,
+                                                   prod_rx_init_planes)
 
     cfg = CFG.replace(frac_timing=True)
     pcm = jnp.zeros((2, 2, CFG.frame_size), jnp.int16)
     with pytest.raises(ValueError, match="frac_timing"):
         prod_rx_batch(cfg, prod_rx_init(cfg, (2,)), pcm)
     with pytest.raises(ValueError, match="frac_timing"):
-        prod_rx_batch(cfg, prod_rx_init(cfg, (2,)), pcm,
-                      fuse_frontend=True)
+        prod_rx_batch(cfg, prod_rx_init_planes(cfg, 2), pcm)
 
 
 def test_energy_normalized_hunt_rescues_cfo_edge():
@@ -262,19 +262,48 @@ def test_energy_normalized_hunt_rescues_cfo_edge():
 
 
 def test_batch_handles_non_128_multiple_channels():
-    """Code-review r5: the front-end channel block must also auto-pick
-    a divisor -- C=192 (a 64-multiple that is not a 128-multiple)
-    previously tripped the front-end kernel's divisibility assert on
-    the two-kernel path (N=B*C=192, cb=min(128,192))."""
+    """C=192 (not a power of two) runs through the batch core with both
+    state types, and silence detects nothing."""
     from singlecarrier_tpu.modem.rx_production import (
         prod_rx_batch, prod_rx_init_planes)
 
     C = 192
     pcm = jnp.zeros((1, C, CFG.frame_size), jnp.int16)
-    for ff in (False, True):
-        _, out = prod_rx_batch(
-            CFG, prod_rx_init(CFG, (C,)) if not ff
-            else prod_rx_init_planes(CFG, C),
-            pcm, fuse_frontend=ff, interpret=True)
+    fn = jax.jit(lambda s, p: prod_rx_batch(CFG, s, p))
+    for st in (prod_rx_init(CFG, (C,)), prod_rx_init_planes(CFG, C)):
+        _, out = fn(st, pcm)
         assert np.asarray(out.valid).shape == (1, C)
         assert not np.asarray(out.valid).any()
+
+
+@pytest.mark.parametrize("cfo_hz", [-29.0, -7.3, 0.0, 12.5, 30.0])
+def test_cfo_estimate_matches_float64_spectrum(cfo_hz):
+    """The CFO search keeps full float32 precision: on noisy,
+    CFO-rotated preamble chips its estimate equals the one read from a
+    float64 FFT of the same chips (same peak bin, same parabolic
+    interpolation) to a tenth of a millihertz (a bf16 spectrum misses it
+    by ~1 mHz), and lies within a third of a bin (rs/nfft) of the true
+    offset."""
+    from singlecarrier_tpu.constants import PREAMBLE_VALUES
+    from singlecarrier_tpu.dsp.fftops import estimate_cfo
+
+    rng = np.random.default_rng(int(1000 + cfo_hz * 10))
+    pn = PREAMBLE_VALUES.astype(np.float64)
+    k = np.arange(pn.size)
+    chips = (pn * (1 + 1j) * 0.5
+             * np.exp(2j * np.pi * cfo_hz * k / CFG.rs + 0.7j))
+    chips = chips + 0.1 * (rng.standard_normal(pn.size)
+                           + 1j * rng.standard_normal(pn.size))
+    got, _ = estimate_cfo(jnp.asarray(chips.astype(np.complex64)),
+                          jnp.asarray(pn.astype(np.float32)), CFG.rs,
+                          nfft=CFG.cfo_nfft)
+
+    nfft = CFG.cfo_nfft
+    power = np.abs(np.fft.fft(chips.astype(np.complex64) * pn, nfft)) ** 2
+    b = int(np.argmax(power))
+    pm, p0, pp = power[(b - 1) % nfft], power[b], power[(b + 1) % nfft]
+    kf = b + 0.5 * (pm - pp) / (pm - 2 * p0 + pp)
+    want = (kf - nfft if kf > nfft / 2 else kf) * CFG.rs / nfft
+
+    assert abs(float(got) - want) < 1e-4
+    assert abs(float(got) - cfo_hz) < CFG.rs / nfft / 3
